@@ -1,0 +1,182 @@
+"""Index pipeline orchestrator: Scan -> Tag -> Write.
+
+Counterpart of ``kobato_eyes_tpu/core/pipeline/orchestrator.py``. Stage
+overrides allow tests (and retag flows) to inject fakes, mirroring
+``set_stage_override``. The write phase holds the quiesce gate.
+
+What the JAX package runs beyond that comes with later slices of the port:
+the ANN embed lane (``settings.index.enabled``) and the fused signature lane
+(``settings.pipeline.inline_signatures``) each log one warning and are
+skipped, and the device query epoch swap (``epoch_manager``) raises.
+"""
+
+from __future__ import annotations
+
+import logging
+import sqlite3
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Callable
+
+from kobato_eyes_tpu_torch.core.config.schema import Settings
+from kobato_eyes_tpu_torch.core.pipeline.contracts import ScanResult
+from kobato_eyes_tpu_torch.core.pipeline.fingerprint import current_tagger_sig
+from kobato_eyes_tpu_torch.core.pipeline.scan_stage import ScanStage, ScanStageConfig
+from kobato_eyes_tpu_torch.core.pipeline.tag_stage import TagStage, TagStageResult
+from kobato_eyes_tpu_torch.core.progress import IndexPhase, ProgressCallback, ProgressEmitter
+from kobato_eyes_tpu_torch.db.connection import bootstrap, quiesced
+from kobato_eyes_tpu_torch.models.base import ITagger
+from kobato_eyes_tpu_torch.services.writer import CatalogWriter
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class IndexStats:
+    scanned: int = 0
+    new: int = 0
+    changed: int = 0
+    missing: int = 0
+    tagged: int = 0
+    tag_failed: int = 0
+    skipped: int = 0
+    written: int = 0
+    elapsed_sec: float = 0.0
+    epoch_version: int | None = None
+    extra: dict = field(default_factory=dict)
+
+
+class IndexPipeline:
+    def __init__(
+        self,
+        db_path: str | Path,
+        settings: Settings,
+        tagger: ITagger,
+        *,
+        epoch_manager: Any = None,
+        progress: ProgressCallback | None = None,
+        is_cancelled: Callable[[], bool] | None = None,
+    ) -> None:
+        if epoch_manager is not None:
+            raise NotImplementedError(
+                "the device query epoch comes with the query-engine slice of the port"
+            )
+        self._db_path = Path(db_path)
+        self._settings = settings
+        self._tagger = tagger
+        self._progress = ProgressEmitter(progress)
+        self._is_cancelled = is_cancelled or (lambda: False)
+        self._tagger_sig = current_tagger_sig(tagger.signature_fields())
+        # test seams (reference set_stage_override)
+        self._scan_override: Callable[[sqlite3.Connection, ProgressEmitter], ScanResult] | None = None
+        self._writer_factory: Callable[[], CatalogWriter] = lambda: CatalogWriter(
+            self._db_path, unsafe_fast=True
+        )
+
+    def set_scan_override(self, fn: Callable[[sqlite3.Connection, ProgressEmitter], ScanResult]) -> None:
+        self._scan_override = fn
+
+    def set_writer_factory(self, fn: Callable[[], CatalogWriter]) -> None:
+        self._writer_factory = fn
+
+    @property
+    def tagger_sig(self) -> str:
+        return self._tagger_sig
+
+    def run(self) -> IndexStats:
+        t0 = time.perf_counter()
+        stats = IndexStats()
+        # per-stage walls so an index run is attributable line by line
+        walls: dict[str, float] = {}
+        stats.extra["stage_walls"] = walls
+        conn = bootstrap(self._db_path)
+        try:
+            # SCAN
+            if self._scan_override is not None:
+                scan = self._scan_override(conn, self._progress)
+            else:
+                scan = ScanStage(
+                    ScanStageConfig(
+                        roots=self._settings.pipeline.roots,
+                        excluded=self._settings.pipeline.excluded,
+                        allow_exts=self._settings.pipeline.allow_exts,
+                    ),
+                    tagger_sig=self._tagger_sig,
+                    is_cancelled=self._is_cancelled,
+                ).run(conn, self._progress)
+            stats.scanned = len(scan.records)
+            stats.new, stats.changed, stats.missing = scan.new, scan.changed, len(scan.missing_ids)
+        finally:
+            conn.close()
+        walls["scan"] = round(time.perf_counter() - t0, 3)
+
+        if self._settings.index.enabled:
+            logger.warning(
+                "index.enabled: the ANN embed lane comes with the ANN slice of "
+                "the port; no vectors are computed"
+            )
+        if self._settings.pipeline.inline_signatures:
+            logger.warning(
+                "pipeline.inline_signatures: fused pHash/dHash come with the "
+                "signature slice of the port; no signatures are computed"
+            )
+
+        # TAG + WRITE under the quiesce gate (exclusive writer phase).
+        tag_result = TagStageResult()
+        t_stage = time.perf_counter()
+        if not self._is_cancelled():
+            with quiesced():
+                writer = self._writer_factory()
+                writer.start()
+                try:
+                    cache_dir = None
+                    if self._settings.pipeline.tagger_input_cache:
+                        from kobato_eyes_tpu_torch.utils.paths import get_app_paths
+
+                        cache_dir = str(
+                            self._settings.pipeline.input_cache_dir
+                            or get_app_paths(self._settings.data_dir).cache_dir / "prepared"
+                        )
+                    tag_result = TagStage(
+                        self._tagger,
+                        tagger_sig=self._tagger_sig,
+                        batch_size=self._settings.pipeline.batch_size,
+                        prefetch_depth=self._settings.pipeline.prefetch_depth,
+                        io_workers=self._settings.pipeline.io_workers,
+                        input_cache_dir=cache_dir,
+                        is_cancelled=self._is_cancelled,
+                        pipeline_depth=self._settings.pipeline.pipeline_depth,
+                    ).run(scan.records, writer, self._progress)
+                finally:
+                    self._progress.phase(IndexPhase.WRITE)
+                    writer.stop(flush=True)
+                stats.written = writer.items_written
+        stats.tagged = tag_result.tagged
+        stats.tag_failed = tag_result.failed
+        stats.skipped = tag_result.skipped
+        walls["tag_write"] = round(time.perf_counter() - t_stage, 3)
+        # device dispatch+fetch inside the tag wall; the remainder is host
+        # decode/prepare/queue time the in-flight window could not hide
+        stats.extra["tag_infer_s"] = round(tag_result.infer_seconds, 3)
+
+        stats.elapsed_sec = time.perf_counter() - t0
+        self._progress.phase(IndexPhase.DONE)
+        logger.info("index run: %s", stats)
+        return stats
+
+
+def run_index_once(
+    db_path: str | Path,
+    settings: Settings,
+    tagger: ITagger,
+    *,
+    epoch_manager: Any = None,
+    progress: ProgressCallback | None = None,
+    is_cancelled: Callable[[], bool] | None = None,
+) -> IndexStats:
+    """Headless single-pass API (reference run_index_once)."""
+    return IndexPipeline(
+        db_path, settings, tagger,
+        epoch_manager=epoch_manager, progress=progress, is_cancelled=is_cancelled,
+    ).run()

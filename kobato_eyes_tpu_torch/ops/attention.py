@@ -1,0 +1,148 @@
+"""Head-resident attention: the hand-written CUDA kernel and its plain version.
+
+Replaces the JAX package's head-resident Pallas kernel
+(``kobato_eyes_tpu/ops/pallas_attention.py``: ``_attn_body`` through
+``_attn_call_packed`` / ``head_resident_attention_packed`` and ``_attn_call``
+/ ``head_resident_attention``). Exact ``softmax(scale * q k^T) v`` per
+(batch, head): q scaled in its own dtype, f32 logits, ``exp(l - rowmax)``
+rounded to v's dtype, f32 row sums, f32 PV accumulation divided after.
+
+On the card the bound is operations: about 60.6 GFLOP per call at the
+ViT-B/448 batch-32 shape (4*T^2*D*B*H with T=785, H=12, D=64) against 154 MB
+of qkv read and output written. The TPU kernel held a head's whole (T, T)
+logits on chip, which does not fit a Hopper block's 227 KB of shared memory,
+so the CUDA kernel (``csrc/head_resident_attention.cu``) tiles the keys with
+an online softmax and never writes the logits to device memory. It reads q,
+k and v through strides straight from the packed (B, T, 3, H, D) projection
+and writes (B, T, H, D), so no transpose copies surround it.
+
+A wrapper launches the kernel for a CUDA tensor and raises if the launch
+fails; it takes the plain version only for a CPU tensor. ``launches`` counts
+the kernel launches in this process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+launches = 0
+
+_SOURCE = "head_resident_attention.cu"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64)
+
+
+# ---------------------------------------------------------------------------
+# Plain version (the CPU path, and what the kernel is held against)
+# ---------------------------------------------------------------------------
+
+
+def head_resident_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float
+) -> torch.Tensor:
+    """(B, T, H, D) q, k, v -> (B, T, H, D), step for step as ``_attn_body``.
+
+    Products run in f32 on upcast inputs, which reproduces
+    ``preferred_element_type=float32`` for bf16 inputs.
+    """
+    q = q * torch.tensor(scale, dtype=q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    m = logits.amax(dim=-1, keepdim=True)
+    w = torch.exp(logits - m).to(v.dtype)
+    s = w.float().sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bhqd", w.float(), v.float())
+    return (o / s).to(q.dtype).permute(0, 2, 1, 3)
+
+
+def head_resident_attention_packed_plain(qkv: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """Packed (B, T, 3, H, D) -> (B, T, H, D), plain version."""
+    q, k, v = qkv.unbind(dim=2)
+    return head_resident_attention_plain(q, k, v, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _library() -> ctypes.CDLL:
+    from kobato_eyes_tpu_torch.ops.build import load
+
+    lib = load(_SOURCE)
+    fn = lib.head_resident_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 6
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: it needs CUDA tensors of one
+    dtype (float32 or bfloat16), D in (32, 64) with unit stride, and q, k, v
+    sharing their shape and strides (the packed views do)."""
+    for x in (q, k, v):
+        if x.device.type != "cuda":
+            raise ValueError(f"attention kernel needs CUDA tensors, got {x.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"attention kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4:
+        raise ValueError(f"expected (B, T, H, D) tensors, got shape {tuple(q.shape)}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head_dim in {_HEAD_DIMS}, got {q.shape[-1]}")
+    for x in (k, v):
+        if x.dtype != q.dtype or x.shape != q.shape or x.stride() != q.stride():
+            raise ValueError("q, k and v must share dtype, shape and strides")
+        if x.device != q.device:
+            raise ValueError("q, k and v must be on one device")
+    if q.stride(-1) != 1:
+        raise ValueError(f"head_dim stride must be 1, got strides {q.stride()}")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    global launches
+    check_inputs(q, k, v)
+    b, t, h, d = q.shape
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.head_resident_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, t, h, d, _DTYPE_CODES[q.dtype],
+        q.stride(0), q.stride(1), q.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        float(scale), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"head_resident_attention launch failed: cudaError_t {err}")
+    launches += 1
+    return out
+
+
+def head_resident_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float
+) -> torch.Tensor:
+    """(B, T, H, D) attention; exact softmax, no (T, T) intermediate in
+    device memory on the card."""
+    if q.device.type == "cpu":
+        return head_resident_attention_plain(q, k, v, scale=scale)
+    return _launch(q, k, v, scale)
+
+
+def head_resident_attention_packed(qkv: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """Packed (B, T, 3, H, D) qkv projection output -> (B, T, H, D).
+
+    The kernel reads q, k and v as three strided views of the one tensor.
+    """
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"expected (B, T, 3, H, D) qkv, got shape {tuple(qkv.shape)}")
+    if qkv.device.type == "cpu":
+        return head_resident_attention_packed_plain(qkv, scale=scale)
+    q, k, v = qkv.unbind(dim=2)
+    return _launch(q, k, v, scale)
