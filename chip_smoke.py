@@ -6,13 +6,22 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from ``kobato_eyes_tpu_torch/csrc``
-with nvcc (sm_90a), holds each kernel against its plain torch version on
-the card at the shapes the main path gives it, then drives the main path
-through the port's CLI: ``index`` of 256 seeded images with the WD14 ViT-B/16
-@ 448 tagger (8192 labels, batch 32, random seeded weights) and a
-``search --backend sql`` for a tag the run assigned. It counts the kernel
-launches of the index run, checks the tagger's fast forward against its
-exact forward, and prints one JSON line of kernel numbers, then
+with nvcc (sm_90a, one nvcc per source, all at once), holds each kernel
+against its plain torch version on the card at the shapes the main paths
+give it, then drives the main paths over 256 seeded images (8192 labels,
+batch 32, random seeded weights):
+
+* ViT: ``index`` through the port's CLI with the WD14 ViT-B/16 @ 448 tagger,
+  and a ``search --backend sql`` for a tag the run assigned;
+* SwinV2: ``run_index_once`` with the WD14 SwinV2-B/448 tagger, a
+  ``search --backend sql`` through the CLI, a forward with the residual
+  LayerNorm kernel (``ln_impl="pallas_residual"``), and
+  ``validate-checkpoint --arch swinv2`` through the CLI on the index
+  tagger's saved weights.
+
+Each kernel's launch count is set to 0 just before the path that runs it
+and read just after. It checks each tagger's fast forward against its exact
+forward, and prints one JSON line of kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. Any failed phase exits
 non-zero before the last line. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -39,6 +48,11 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
 VIT_B448 = dict(batch=32, tokens=785, heads=12, head_dim=64)
+# SwinV2-B/448 window attention per stage: (windows per image, heads); every
+# stage has n = 7*7 tokens per window and head_dim 32
+SWIN_B448_STAGES = ((256, 4), (64, 8), (16, 16), (4, 32))
+SWIN_B448_DEPTHS = (2, 2, 18, 2)
+SWIN_WINDOW = 7
 N_IMAGES = 256
 BATCH = 32
 N_LABELS = 8192
@@ -195,6 +209,210 @@ def attention_phase() -> dict:
     }
 
 
+def _window_inputs(batch, nw, n, heads, hd, dtype, seed, masked):
+    """Seeded window-attention inputs on the card: qkv N(0, 1), the JAX
+    tests' scale range exp(U(1, 2)), a CPB-like bias 16*sigmoid(N(0, 1)),
+    and (masked) SwinV2's real shift mask for a square grid of nw windows."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.models.swin import _shift_attn_mask
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    qkv = torch.from_numpy(rng.normal(size=(batch, nw, n, 3, heads, hd)).astype(np.float32)).to(dev, dtype)
+    scale = torch.from_numpy(np.exp(rng.uniform(1.0, 2.0, heads)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy((16.0 / (1.0 + np.exp(-rng.normal(size=(heads, n, n))))).astype(np.float32)).to(dev)
+    mask = None
+    if masked:
+        w = int(round(n**0.5))
+        grid = int(round(nw**0.5)) * w
+        mask = torch.from_numpy(_shift_attn_mask(grid, w, w // 2)).to(dev)
+    return qkv, scale, bias, mask
+
+
+def window_attention_phase() -> dict:
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.ops import window_attention as wa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    def compare(name, qkv, scale, bias, mask, tol, qk_precision="default"):
+        got = wa.windowed_cosine_attention_packed(qkv, scale, bias, mask, qk_precision=qk_precision)
+        want = wa.windowed_cosine_attention_packed_plain(qkv, scale, bias, mask, qk_precision=qk_precision)
+        torch.cuda.synchronize()
+        check(got.dtype == qkv.dtype and got.shape == want.shape, f"window {name}: dtype/shape")
+        check(bool(torch.isfinite(got).all()), f"window {name}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        print(f"window attention {name}: max_abs_err={err:.3e} (tol {tol:g})")
+        check(err <= tol, f"window {name}: max_abs_err {err} > {tol}")
+        return err
+
+    b, n, hd = BATCH, SWIN_WINDOW**2, 32
+    errs = []
+    main = {}
+    for stage in (0, 2):
+        nw, h = SWIN_B448_STAGES[stage]
+        for masked in (False, True):
+            ins = _window_inputs(b, nw, n, h, hd, torch.bfloat16, 10 + stage, masked)
+            # bf16 output: one bf16 rounding of |out| <= ~4 is 2^-6
+            errs.append(compare(f"swinv2-b448 stage {stage} bf16 {'masked' if masked else 'unmasked'}",
+                                *ins, 3e-2))
+            if masked:
+                main[stage] = ins
+    # f32: 5e-5, the JAX package's kernel tolerance (sums in another order)
+    compare("f32 stage 1 masked B=4", *_window_inputs(4, 64, n, 8, hd, torch.float32, 20, True), 5e-5)
+    compare("n=196 f32 masked", *_window_inputs(2, 4, 196, 2, 32, torch.float32, 21, True), 5e-5)
+    compare("n=196 hd=16 bf16", *_window_inputs(2, 4, 196, 3, 16, torch.bfloat16, 22, False), 3e-2)
+    compare("qk_precision=bf16 f32", *_window_inputs(2, 16, n, 4, hd, torch.float32, 23, True), 5e-5,
+            qk_precision="bf16")
+    # production bounds: clamped scale 100, CPB bias at its 16 ceiling, one
+    # window masked off the diagonal: rows survive on the diagonal only
+    qkv, _, _, _ = _window_inputs(1, 4, 196, 2, 32, torch.float32, 2, False)
+    scale = torch.full((2,), 100.0, device=dev)
+    bias = torch.full((2, 196, 196), 16.0, device=dev)
+    mask_np = np.zeros((4, 196, 196), np.float32)
+    mask_np[0] = -100.0
+    for i in range(196):
+        mask_np[0, i, i] = 0.0
+    compare("production bounds f32", qkv, scale, bias, torch.from_numpy(mask_np).to(dev), 5e-4)
+
+    rows = []
+    for stage in (0, 2):
+        qkv, scale, bias, mask = main[stage]
+        nw, h = SWIN_B448_STAGES[stage]
+        ms = cuda_ms(lambda: wa.windowed_cosine_attention_packed(qkv, scale, bias, mask), iters=20)
+        plain_ms = cuda_ms(lambda: wa.windowed_cosine_attention_packed_plain(qkv, scale, bias, mask), iters=5)
+        # yardstick: SDPA on pre-normalised, per-head-scaled q and k laid out
+        # (B, nW*H, n, hd) with attn_mask = bias + mask; the normalisation
+        # and the relayout are done beforehand and only the SDPA call is timed
+        q, k, v = qkv.unbind(dim=3)
+        qn = torch.nn.functional.normalize(q.float(), dim=-1) * scale[:, None]
+        kn = torch.nn.functional.normalize(k.float(), dim=-1)
+
+        def heads_major(x):
+            return x.to(torch.bfloat16).permute(0, 1, 3, 2, 4).reshape(b, nw * h, n, hd).contiguous()
+
+        qs, ks, vs = heads_major(qn), heads_major(kn), heads_major(v)
+        attn_mask = (bias[None] + mask[:, None]).reshape(1, nw * h, n, n).to(torch.bfloat16)
+        library_ms = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn_mask, scale=1.0),
+            iters=20,
+        )
+        flops = 4.0 * n * n * hd * b * nw * h
+        bytes_moved = (qkv.numel() + b * nw * n * h * hd) * qkv.element_size() + (bias.numel() + mask.numel()) * 4
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        print(
+            f"window attention swinv2-b448 stage {stage} bf16 B={b} nW={nw} H={h}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa call alone {library_ms:.4f} ms, "
+            f"bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.1f} MB, "
+            f"{'bytes' if t_bytes >= t_ops else 'operations'})"
+        )
+        rows.append((stage, ms, plain_ms, library_ms, t_ops, t_bytes))
+    _, ms, plain_ms, library_ms, t_ops, t_bytes = rows[0]  # stage 0 is the reported shape
+    return {
+        "name": "window_cosine_attention",
+        "route": "cuda",
+        "source": "kobato_eyes_tpu_torch/csrc/window_cosine_attention.cu",
+        "replaces": "kobato_eyes_tpu/ops/pallas_window_attention.py:110",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def layernorm_residual_phase() -> dict:
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.ops import layernorm_residual as lnr
+
+    dev = torch.device("cuda")
+
+    def inputs(rows, c, dtype, seed):
+        rng = np.random.default_rng(seed)
+
+        def t(a, dt):
+            return torch.from_numpy(a.astype(np.float32)).to(dev, dt)
+
+        return (t(rng.normal(size=(rows, c)) * 3, dtype), t(rng.normal(size=(rows, c)), dtype),
+                t(rng.uniform(0.5, 2.0, c), torch.float32), t(rng.normal(size=c), torch.float32))
+
+    def compare(name, x, res, gamma, beta):
+        got = lnr.layernorm_residual(x, res, gamma, beta)
+        want = lnr.layernorm_residual_plain(x, res, gamma, beta)
+        torch.cuda.synchronize()
+        check(got.dtype == x.dtype and got.shape == x.shape, f"ln {name}: dtype/shape")
+        check(bool(torch.isfinite(got).all()), f"ln {name}: non-finite output")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if x.dtype == torch.bfloat16:
+            # sums in another order may move the one final rounding by one
+            # bf16 step: 2^-7 of the value's magnitude
+            ok = bool((diff <= 2.0**-7 * want.float().abs() + 1e-6).all())
+            tol = "one bf16 rounding"
+        else:
+            ok = err <= 2e-4  # the JAX package's tolerance
+            tol = "2e-4"
+        print(f"layernorm_residual {name}: max_abs_err={err:.3e} (tol {tol})")
+        check(ok, f"ln {name}: max_abs_err {err} over {tol}")
+        return err
+
+    errs = []
+    main = {}
+    for rows, c in ((401408, 128), (6272, 1024)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = inputs(rows, c, dtype, seed=c)
+            err = compare(f"({rows}, {c}) {str(dtype).split('.')[-1]}", *ins)
+            if dtype == torch.bfloat16:
+                errs.append(err)
+                main[c] = ins
+    compare("(4096, 100) f32", *inputs(4096, 100, torch.float32, 3))
+    compare("(4096, 100) bf16", *inputs(4096, 100, torch.bfloat16, 4))
+
+    rows_out = []
+    for c in (128, 1024):
+        x, res, gamma, beta = main[c]
+        ms = cuda_ms(lambda: lnr.layernorm_residual(x, res, gamma, beta), iters=20)
+        plain_ms = cuda_ms(lambda: lnr.layernorm_residual_plain(x, res, gamma, beta), iters=5)
+        g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
+        # yardstick: two calls, F.layer_norm then the residual add
+        library_ms = cuda_ms(
+            lambda: res + torch.nn.functional.layer_norm(x, (x.shape[-1],), g16, b16, 1e-5), iters=20
+        )
+        bytes_moved = 3 * x.numel() * x.element_size() + 2 * gamma.numel() * 4
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = 8.0 * x.numel() / BF16_FLOPS_PER_S * 1e3
+        print(
+            f"layernorm_residual ({x.shape[0]}, {c}) bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"layer_norm + add (two calls) {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+            f"({bytes_moved / 1e6:.1f} MB, {'bytes' if t_bytes >= t_ops else 'operations'})"
+        )
+        rows_out.append((ms, plain_ms, library_ms, t_ops, t_bytes))
+    ms, plain_ms, library_ms, t_ops, t_bytes = rows_out[0]  # stage 0 is the reported shape
+    return {
+        "name": "layernorm_residual",
+        "route": "cuda",
+        "source": "kobato_eyes_tpu_torch/csrc/layernorm_residual.cu",
+        "replaces": "kobato_eyes_tpu/ops/pallas_layernorm_residual.py:76",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+
+
 # ---------------------------------------------------------------------------
 # Slice phase: the port's CLI over a seeded library
 # ---------------------------------------------------------------------------
@@ -239,16 +457,11 @@ def run_cli(argv: list[str]) -> str:
     return out.getvalue()
 
 
-def slice_phase(work: Path) -> int:
-    """Index + search through the CLI; returns the attention launches of the
-    index run."""
-    import numpy as np
-    import torch
-
+def write_workspace(work: Path) -> tuple[Path, Path, Path]:
+    """The seeded library, its label table and a settings file naming both;
+    returns (library, labels, settings path)."""
     from kobato_eyes_tpu_torch.core.config.schema import PipelineSettings, Settings, TaggerSettings
     from kobato_eyes_tpu_torch.core.config.service import save_settings
-    from kobato_eyes_tpu_torch.db.connection import bootstrap
-    from kobato_eyes_tpu_torch.ops import attention
 
     t0 = time.perf_counter()
     lib = work / "library"
@@ -261,30 +474,14 @@ def slice_phase(work: Path) -> int:
     )
     cfg = work / "settings.yaml"
     save_settings(settings, cfg)
-    data = work / "data"
     print(f"slice setup: {N_IMAGES} images + {N_LABELS} labels in {time.perf_counter() - t0:.1f} s")
+    return lib, labels, cfg
 
-    base = ["--config", str(cfg), "--data-dir", str(data), "--device", "cuda"]
-    attention.launches = 0
-    t0 = time.perf_counter()
-    out = run_cli(base + ["index"])
-    wall = time.perf_counter() - t0
-    launches = attention.launches
-    stats = json.loads(out.strip().splitlines()[-1])
-    tagged, failed = stats["tagged"], stats["tag_failed"]
-    print(
-        f"index: tagged={tagged} tag_failed={failed} written={stats['written']} "
-        f"elapsed_sec={stats['elapsed_sec']:.3f} wall={wall:.3f} s "
-        f"images/s={tagged / stats['elapsed_sec']:.2f} "
-        f"stage_walls={json.dumps(stats['extra']['stage_walls'])} "
-        f"tag_infer_s={stats['extra']['tag_infer_s']} "
-        f"attention_launches={launches}"
-    )
-    check(tagged == N_IMAGES, f"tagged {tagged} != {N_IMAGES}")
-    check(failed == 0, f"tag_failed {failed} != 0")
-    depth = 12  # ViT-B: one attention launch per layer per batch
-    check(launches == depth * (N_IMAGES // BATCH),
-          f"attention launches {launches} != {depth * (N_IMAGES // BATCH)}")
+
+def search_top_tag(data: Path, base: list[str]) -> None:
+    """``search --backend sql`` through the CLI for the general tag the index
+    run assigned most often; fails on an empty result."""
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
 
     conn = bootstrap(data / "db" / "catalog.sqlite3")
     try:
@@ -300,6 +497,41 @@ def slice_phase(work: Path) -> int:
     print(f"search --backend sql {row['name']!r}: {len(hits)} results "
           f"(tag on {row['n']} files; {n_rows} file_tags rows)")
     check(len(hits) > 0, "search returned no results")
+
+
+def print_index_stats(name: str, stats: dict, wall: float, launches: str) -> None:
+    print(
+        f"{name} index: tagged={stats['tagged']} tag_failed={stats['tag_failed']} "
+        f"written={stats['written']} elapsed_sec={stats['elapsed_sec']:.3f} wall={wall:.3f} s "
+        f"images/s={stats['tagged'] / stats['elapsed_sec']:.2f} "
+        f"stage_walls={json.dumps(stats['extra']['stage_walls'])} "
+        f"tag_infer_s={stats['extra']['tag_infer_s']} {launches}"
+    )
+    check(stats["tagged"] == N_IMAGES, f"{name}: tagged {stats['tagged']} != {N_IMAGES}")
+    check(stats["tag_failed"] == 0, f"{name}: tag_failed {stats['tag_failed']} != 0")
+
+
+def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> int:
+    """ViT index + search through the CLI; returns the attention launches of
+    the index run."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.ops import attention
+
+    data = work / "data"
+    base = ["--config", str(cfg), "--data-dir", str(data), "--device", "cuda"]
+    attention.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(base + ["index"])
+    wall = time.perf_counter() - t0
+    launches = attention.launches
+    stats = json.loads(out.strip().splitlines()[-1])
+    print_index_stats("vit-b448", stats, wall, f"attention_launches={launches}")
+    depth = 12  # ViT-B: one attention launch per layer per batch
+    check(launches == depth * (N_IMAGES // BATCH),
+          f"attention launches {launches} != {depth * (N_IMAGES // BATCH)}")
+    search_top_tag(data, base)
 
     # the fast forward (attention kernel + tanh-gelu) against the exact
     # einsum/erf forward, same weights, on a few of the library's images
@@ -335,6 +567,100 @@ def slice_phase(work: Path) -> int:
     return launches
 
 
+def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int]:
+    """SwinV2-B/448: index through ``run_index_once``, search through the CLI,
+    fast / exact / residual-LN forwards, then ``validate-checkpoint`` through
+    the CLI on the index tagger's weights. Returns the window-kernel launches
+    of the index run and the LN-kernel launches of the residual-LN batch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.core.config.service import load_settings
+    from kobato_eyes_tpu_torch.core.pipeline import run_index_once
+    from kobato_eyes_tpu_torch.models.labels import load_labels
+    from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
+    from kobato_eyes_tpu_torch.ops import layernorm_residual, window_attention
+    from kobato_eyes_tpu_torch.utils.image_io import load_rgb_array
+
+    t0 = time.perf_counter()
+    fast = WD14Tagger(arch="swinv2", labels_path=labels, device="cuda")
+    check(fast.cfg.attn_impl == "pallas" and fast.cfg.ln_impl == "xla", "swinv2 fast_math knobs")
+    print(f"swinv2-b448 tagger: seeded init + upload in {time.perf_counter() - t0:.1f} s")
+    data = work / "data_swin"
+    (data / "db").mkdir(parents=True)
+    window_attention.launches = 0
+    layernorm_residual.launches = 0
+    t0 = time.perf_counter()
+    stats = run_index_once(data / "db" / "catalog.sqlite3", load_settings(cfg), fast).__dict__
+    wall = time.perf_counter() - t0
+    win_launches, ln_launches = window_attention.launches, layernorm_residual.launches
+    print_index_stats("swinv2-b448", stats, wall,
+                      f"window_launches={win_launches} ln_launches={ln_launches}")
+    depth = sum(SWIN_B448_DEPTHS)  # one window-kernel launch per block per batch
+    check(win_launches == depth * (N_IMAGES // BATCH),
+          f"window launches {win_launches} != {depth * (N_IMAGES // BATCH)}")
+    check(ln_launches == 0, f"LN launches {ln_launches} != 0 with ln_impl=xla")
+    search_top_tag(data, ["--config", str(cfg), "--data-dir", str(data), "--device", "cuda"])
+
+    state = fast._model.state_dict()
+    exact = WD14Tagger(arch="swinv2", labels=load_labels(labels), device="cuda", fast_math=False,
+                       params=state)
+    ln_fast = WD14Tagger(labels=load_labels(labels), device="cuda", params=state,
+                         swin=dataclasses.replace(fast.cfg, ln_impl="pallas_residual"))
+    check(exact.cfg.attn_impl == "einsum" and ln_fast.cfg.ln_impl == "pallas_residual", "swinv2 knobs")
+    imgs = [load_rgb_array(p) for p in sorted(lib.iterdir())[:4]]
+    batch = fast.prepare_batch_from_rgb(imgs)
+    b32 = np.concatenate([batch] * (BATCH // len(batch)))
+    p_fast = fast.forward_probs(b32)
+    p_exact = exact.forward_probs(b32)
+    layernorm_residual.launches = 0
+    ln_results = ln_fast.infer_batch_prepared(b32)
+    ln_launches = layernorm_residual.launches
+    p_ln = ln_fast.forward_probs(b32)
+    torch.cuda.synchronize()
+    check(len(ln_results) == BATCH, "residual-LN batch results")
+    check(tuple(p_fast.shape) == (BATCH, N_LABELS), f"probs shape {tuple(p_fast.shape)}")
+    for name, p in (("fast", p_fast), ("exact", p_exact), ("residual-LN", p_ln)):
+        check(bool(torch.isfinite(p).all()), f"swinv2 {name}: non-finite probabilities")
+    dev_exact = float((p_fast - p_exact).abs().max())
+    dev_ln = float((p_fast - p_ln).abs().max())
+    print(f"swinv2-b448 fast vs exact forward: max |dp| = {dev_exact:.3e} (tol 0.02); "
+          f"residual-LN vs fast: max |dp| = {dev_ln:.3e} (tol 0.02); "
+          f"LN launches in one residual-LN batch: {ln_launches}")
+    check(dev_exact <= 0.02, f"swinv2 fast vs exact deviation {dev_exact} > 0.02")
+    check(dev_ln <= 0.02, f"swinv2 residual-LN vs fast deviation {dev_ln} > 0.02")
+    check(ln_launches == 2 * depth, f"LN launches {ln_launches} != {2 * depth}")
+
+    fast_ms = cuda_ms(lambda: fast.forward_probs(b32), iters=5)
+    exact_ms = cuda_ms(lambda: exact.forward_probs(b32), iters=5)
+    ln_ms = cuda_ms(lambda: ln_fast.forward_probs(b32), iters=5)
+    print(f"swinv2-b448 batch-{BATCH} forward_probs: fast {fast_ms:.2f} ms, exact {exact_ms:.2f} ms, "
+          f"fast with residual-LN kernel {ln_ms:.2f} ms "
+          f"({BATCH / fast_ms * 1e3:.1f} images/s device-side on the fast path)")
+    del exact, ln_fast
+
+    # validate-checkpoint through the CLI on the index tagger's weights
+    ckpt = work / "swinv2_b448.pt"
+    torch.save(state, ckpt)
+    del fast, state
+    t0 = time.perf_counter()
+    out = run_cli(["--device", "cuda", "validate-checkpoint", str(ckpt), "--arch", "swinv2",
+                   "--classes", str(N_LABELS)])
+    report = json.loads(out)
+    print(
+        f"validate-checkpoint swinv2: ok={report['ok']} finite={report['finite']} "
+        f"max_prob_deviation={report['max_prob_deviation']:.3e} "
+        f"tag_flips={report['tag_flips']} out_of_band={report['tag_flips_out_of_band']} "
+        f"import={report['import']} fast_path={report['fast_path']} "
+        f"in {time.perf_counter() - t0:.1f} s"
+    )
+    check(report["finite"], "validate-checkpoint: non-finite forward")
+    check(report["max_prob_deviation"] <= 0.02, "validate-checkpoint: deviation over 0.02")
+    return win_launches, ln_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -360,16 +686,20 @@ def main() -> int:
 
     t_start = time.perf_counter()
     build_kernels()
-    kernel = attention_phase()
+    attn = attention_phase()
+    window = window_attention_phase()
+    ln = layernorm_residual_phase()
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_root))
     try:
-        kernel["launches"] = slice_phase(work)
+        lib, labels, cfg = write_workspace(work)
+        attn["launches"] = slice_phase(work, lib, labels, cfg)
+        window["launches"], ln["launches"] = swin_phase(work, lib, labels, cfg)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [attn, window, ln]}))
     print(json.dumps({
         "ok": True,
         "device": {

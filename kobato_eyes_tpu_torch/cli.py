@@ -1,7 +1,8 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 Counterpart of ``kobato_eyes_tpu/cli.py`` for the commands ported so far:
-``index`` (scan + tag + write) and ``search`` over the SQL backend. The
+``index`` (scan + tag + write), ``search`` over the SQL backend and
+``validate-checkpoint`` (import -> exact-vs-fast parity -> tag flips). The
 device query engine and the other commands come with later slices.
 
 Usage: ``python -m kobato_eyes_tpu_torch.cli [--device cuda|cpu] <command> ...``
@@ -122,6 +123,30 @@ def cmd_search(args) -> int:
     return 0
 
 
+def cmd_validate_checkpoint(args) -> int:
+    """Import -> strict manifest -> exact-vs-fast forward parity -> tag parity
+    at production thresholds; exit 0 iff everything holds (models/validate.py)."""
+    if args.arch == "clip":
+        print("validate-checkpoint --arch clip: the CLIP lane comes with the ANN slice "
+              "of the port", file=sys.stderr)
+        return 2
+    from kobato_eyes_tpu_torch.models.validate import validate_checkpoint
+
+    report = validate_checkpoint(
+        args.checkpoint,
+        arch=args.arch,
+        preset=args.preset,
+        image_size=args.image_size,
+        classes=args.classes,
+        labels_path=args.labels,
+        n_images=args.images,
+        prob_tolerance=args.tolerance,
+        device=args.device,
+    )
+    print(json.dumps(report, indent=2))
+    return 0 if report["ok"] else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="ket-torch", description=__doc__)
     parser.add_argument("--config", help="settings.yaml path")
@@ -142,6 +167,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit", type=int, default=200)
     p.add_argument("--offset", type=int, default=0)
     p.set_defaults(fn=cmd_search)
+
+    p = sub.add_parser(
+        "validate-checkpoint",
+        help="import -> exact-vs-fast parity -> tag parity, one shot",
+    )
+    p.add_argument("checkpoint", help=".pth/.pt/.safetensors state dict")
+    p.add_argument(
+        "--arch", choices=["swinv2", "vit", "pixai", "clip"], default="swinv2",
+        help="model family lane: WD14 backbones, the PixAI tagger "
+             "(preprocess.json + ips propagation), or the CLIP embedder",
+    )
+    p.add_argument("--preset", default="base")
+    p.add_argument("--image-size", type=int, default=448)
+    p.add_argument("--classes", type=int, default=None,
+                   help="label count when --labels is not given")
+    p.add_argument("--labels", default=None, help="label CSV path")
+    p.add_argument("--images", type=int, default=8,
+                   help="synthetic validation images to run")
+    p.add_argument("--tolerance", type=float, default=0.02,
+                   help="max allowed exact-vs-fast probability deviation")
+    p.add_argument("--clip-variant", choices=["openai", "open_clip"],
+                   default="openai", help="tower convention for --arch clip")
+    p.add_argument("--patch-size", type=int, default=32,
+                   help="ViT patch size for --arch clip")
+    p.set_defaults(fn=cmd_validate_checkpoint)
     return parser
 
 

@@ -9,9 +9,11 @@ the JAX tagger's for the same config, so a catalog tagged by one package is
 not re-tagged by the other.
 
 Weights are a state dict (timm names, see ``models/import_weights.py``) or a
-random init from a seeded ``torch.Generator``. Only the ViT arch is ported so
-far; SwinV2, checkpoint loading, the mesh and bf16 parameters come with
-later slices and raise until then.
+random init from a seeded ``torch.Generator``. Both archs are ported: ViT
+(``models/vit.py``) and SwinV2 (``models/swin.py``, the WD14 family's real
+arch). Loading an orbax checkpoint (the checkpoint IO slice), the mesh (the
+multi-device slice) and bf16 parameters (the slice that ports the JAX
+package's ``bf16_params`` weight cast) raise until their slices land.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from kobato_eyes_tpu_torch.models.postprocess import (
     topk_hits_by_category,
 )
 from kobato_eyes_tpu_torch.models.preprocess import PreprocessSpec, normalize_on_device, prepare_batch
+from kobato_eyes_tpu_torch.models.swin import SwinConfig, SwinV2, init_swin_, swin_config
 from kobato_eyes_tpu_torch.models.vit import ViT, ViTConfig, init_vit_, vit_config
 from kobato_eyes_tpu_torch.utils.metrics import metrics
 
@@ -87,8 +90,8 @@ class TorchTagger:
         labels: Sequence[TagMeta] | None = None,
         labels_path: str | Path | None = None,
         vit: ViTConfig | None = None,
-        swin: Any = None,
-        arch: str = "vit",
+        swin: SwinConfig | None = None,  # overrides arch="swinv2"
+        arch: str = "vit",  # "vit" | "swinv2" (the WD14 family's real arch)
         preset: str = "base",
         params: Mapping[str, torch.Tensor] | None = None,
         checkpoint_path: str | Path | None = None,
@@ -105,25 +108,33 @@ class TorchTagger:
         fast_math: bool | None = None,
         device: str | torch.device | None = None,
     ) -> None:
-        """``fast_math``: the fast ViT forward — the hand-written CUDA
-        attention kernel (``attn_impl="pallas"``) plus tanh-gelu. ``None``
+        """``fast_math``: the fast forward — the hand-written CUDA attention
+        kernel (``attn_impl="pallas"``: head-resident for ViT, window cosine
+        for SwinV2) plus tanh-gelu; ``ln_impl`` is left alone. ``None``
         (default) turns it on when the device is ``cuda``; pass ``False`` for
         the exact einsum/erf forward. Only applies to an explicitly passed
-        ``vit`` config if it left those knobs at their defaults.
+        ``vit``/``swin`` config if it left those knobs at their defaults.
 
         ``params``: the port's state dict (timm names); ``None`` draws random
         weights from ``torch.Generator().manual_seed(seed)``.
         """
-        if swin is not None or arch != "vit":
-            raise NotImplementedError("the SwinV2 tagger comes with the SwinV2 slice of the port")
         if checkpoint_path is not None:
             raise NotImplementedError(
-                "checkpoint loading comes with a later slice of the port; pass params="
+                "orbax checkpoint loading comes with the checkpoint IO slice of the port; "
+                "pass params= (models/import_weights.import_torch_checkpoint reads .pt/.safetensors)"
             )
         if mesh is not None:
             raise NotImplementedError("multi-device tagging comes with the multi-device slice")
         if bf16_params:
-            raise NotImplementedError("bf16_params comes with a later slice of the port")
+            raise NotImplementedError(
+                "bf16_params comes with the slice that ports the JAX package's bf16 weight cast"
+            )
+        if swin is not None:
+            arch = "swinv2"
+        elif vit is not None:
+            arch = "vit"
+        if arch not in ("vit", "swinv2"):
+            raise ValueError(f"unknown arch {arch!r} (vit | swinv2)")
         self.device = resolve_device(device)
 
         if labels is None and labels_path is not None:
@@ -152,7 +163,7 @@ class TorchTagger:
         self._tag_meta = {m.name: m for m in self.labels}
         self._name_to_idx = {m.name: i for i, m in enumerate(self.labels)}
 
-        self.arch = "vit"
+        self.arch = arch
         if fast_math is None:
             fast_math = self.device.type == "cuda"
             if fast_math:
@@ -163,7 +174,10 @@ class TorchTagger:
                     "fast_math auto-enabled on CUDA (attention kernel + "
                     "tanh-gelu); pass fast_math=False for the exact forward"
                 )
-        self.cfg = vit or vit_config(preset, image_size=image_size, num_classes=len(self.labels))
+        if arch == "swinv2":
+            self.cfg = swin or swin_config(preset, image_size=image_size, num_classes=len(self.labels))
+        else:
+            self.cfg = vit or vit_config(preset, image_size=image_size, num_classes=len(self.labels))
         if fast_math and self.cfg.attn_impl == "einsum" and self.cfg.act == "gelu":
             self.cfg = dataclasses.replace(self.cfg, attn_impl="pallas", act="gelu_tanh")
         if self.cfg.num_classes != len(self.labels):
@@ -198,15 +212,15 @@ class TorchTagger:
         self._cat_vec_dev = torch.from_numpy(self.cats).to(self.device)
         self._thr_dev_cache: tuple[np.ndarray, torch.Tensor] | None = None
 
-        model = ViT(self.cfg)
+        model, init = (SwinV2(self.cfg), init_swin_) if arch == "swinv2" else (ViT(self.cfg), init_vit_)
         if params is not None:
             model.load_state_dict(params, strict=True)
         else:
             logger.info(
-                "tagger %s: random-init weights (%d labels, vit/%s preset)",
-                self.mode, len(self.labels), preset,
+                "tagger %s: random-init weights (%d labels, %s/%s preset)",
+                self.mode, len(self.labels), arch, preset,
             )
-            init_vit_(model, torch.Generator().manual_seed(seed))
+            init(model, torch.Generator().manual_seed(seed))
         self._model = model.to(self.device).eval().requires_grad_(False)
 
     # -- identity ---------------------------------------------------------
@@ -220,7 +234,13 @@ class TorchTagger:
         label_digest = hashlib.sha256(
             "\n".join(f"{m.name}:{int(m.category)}" for m in self.labels).encode()
         ).hexdigest()[:16]
-        arch = f"vit-d{self.cfg.depth}-h{self.cfg.hidden_dim}-p{self.cfg.patch_size}-{self.cfg.image_size}"
+        if self.arch == "swinv2":
+            arch = (
+                f"swinv2-e{self.cfg.embed_dim}-d{'.'.join(map(str, self.cfg.depths))}"
+                f"-w{self.cfg.window_size}-{self.cfg.image_size}"
+            )
+        else:
+            arch = f"vit-d{self.cfg.depth}-h{self.cfg.hidden_dim}-p{self.cfg.patch_size}-{self.cfg.image_size}"
         return {
             "name": self.mode,
             "arch": arch,

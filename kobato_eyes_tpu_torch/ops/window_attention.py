@@ -1,0 +1,209 @@
+"""SwinV2 window cosine attention: the hand-written CUDA kernel and its plain version.
+
+Replaces the JAX package's window-resident Pallas kernel
+(``kobato_eyes_tpu/ops/pallas_window_attention.py``: ``_win_attn_kernel``
+through ``_win_attn_call`` / ``windowed_cosine_attention_packed``). Per
+window and head: q and k L2-normalised in f32 with
+``rsqrt(max(sum(x^2), 1e-12))``, logits times the exp-clamped per-head scale
+plus the CPB bias (H, n, n) plus the shift mask (nW, n, n), a row-max
+softmax whose ``exp`` is rounded to v's dtype and summed in f32, PV in f32,
+then the division.
+
+``qk_precision``: ``"default"`` and ``"highest"`` take the products on f32
+operands, which is what the JAX function computes on the CPU (on the TPU,
+``"default"`` rounds the operands to bf16 on its matrix unit); ``"bf16"``
+rounds the normalised q and k to bf16 first, as the JAX kernel does.
+
+On the card the bound is bytes: the qkv projection is read once and the
+output written once (411 MB at SwinV2-B/448 stage 0, batch 32). The CUDA
+kernel (``csrc/window_cosine_attention.cu``) runs one block per (batch,
+window, head), reads q, k and v through strides from the packed
+(B, nW, n, 3, H, hd) projection, and writes a (B, nW, n, H, hd) buffer. The
+public functions return it as a (B, H, nW, n, hd) view, the JAX layout, so
+the caller can read the buffer as (B*nW, n, C) with no copy.
+
+A wrapper launches the kernel for a CUDA tensor and raises if the launch
+fails; it takes the plain version only for a CPU tensor. ``launches`` counts
+the kernel launches in this process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+launches = 0
+
+_SOURCE = "window_cosine_attention.cu"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+QK_PRECISIONS = ("default", "bf16", "highest")
+MAX_TOKENS = 256  # window 16
+MAX_HEAD_DIM = 64
+
+
+def _check_precision(qk_precision: str) -> None:
+    if qk_precision not in QK_PRECISIONS:
+        raise ValueError(f"unknown qk_precision {qk_precision!r}; have {QK_PRECISIONS}")
+
+
+def _check_shapes(qkv: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  mask: torch.Tensor | None) -> None:
+    if qkv.dim() != 6 or qkv.shape[3] != 3:
+        raise ValueError(f"expected (B, nW, n, 3, H, hd) qkv, got shape {tuple(qkv.shape)}")
+    _, nw, n, _, h, _ = qkv.shape
+    if tuple(scale.shape) != (h,):
+        raise ValueError(f"scale must be ({h},), got {tuple(scale.shape)}")
+    if tuple(bias.shape) != (h, n, n):
+        raise ValueError(f"bias must be ({h}, {n}, {n}), got {tuple(bias.shape)}")
+    if mask is not None and tuple(mask.shape) != (nw, n, n):
+        raise ValueError(f"mask must be ({nw}, {n}, {n}), got {tuple(mask.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# Plain version (the CPU path, and what the kernel is held against)
+# ---------------------------------------------------------------------------
+
+
+def windowed_cosine_attention_packed_plain(
+    qkv: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    mask: torch.Tensor | None,
+    *,
+    qk_precision: str = "default",
+) -> torch.Tensor:
+    """(B, nW, n, 3, H, hd) -> (B, H, nW, n, hd), step for step as
+    ``_win_attn_kernel``; the result is a view of a (B, nW, n, H, hd) tensor,
+    as the kernel's is."""
+    _check_precision(qk_precision)
+    _check_shapes(qkv, scale, bias, mask)
+    q, k, v = qkv.unbind(dim=3)  # (B, nW, n, H, hd)
+    qf, kf = q.float(), k.float()
+    qn = qf * torch.rsqrt(torch.clamp((qf * qf).sum(-1, keepdim=True), min=1e-12))
+    kn = kf * torch.rsqrt(torch.clamp((kf * kf).sum(-1, keepdim=True), min=1e-12))
+    if qk_precision == "bf16":
+        qn, kn = qn.bfloat16().float(), kn.bfloat16().float()
+    logits = torch.einsum("bwnhd,bwmhd->bwhnm", qn, kn)
+    logits = logits * scale.float()[:, None, None] + bias.float()
+    if mask is not None:
+        logits = logits + mask.float()[:, None]
+    m = logits.amax(dim=-1, keepdim=True)
+    w = torch.exp(logits - m).to(v.dtype)
+    s = w.float().sum(dim=-1)  # (B, nW, H, n)
+    o = torch.einsum("bwhnm,bwmhd->bwnhd", w.float(), v.float())
+    o = o / s.transpose(2, 3).unsqueeze(-1)
+    return o.to(qkv.dtype).contiguous().permute(0, 3, 1, 2, 4)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _library() -> ctypes.CDLL:
+    from kobato_eyes_tpu_torch.ops.build import load
+
+    lib = load(_SOURCE)
+    fn = lib.window_cosine_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 9
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_inputs(qkv: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 mask: torch.Tensor | None) -> None:
+    """Raise on what the kernel does not take: CUDA tensors on one device,
+    qkv float32 or bfloat16 with unit head_dim stride, hd a multiple of 8 up
+    to 64, and n up to 256."""
+    _check_shapes(qkv, scale, bias, mask)
+    for x in (qkv, scale, bias) + ((mask,) if mask is not None else ()):
+        if x.device != qkv.device or x.device.type != "cuda":
+            raise ValueError(f"window attention kernel needs CUDA tensors on one device, got {x.device}")
+    if qkv.dtype not in _DTYPE_CODES:
+        raise ValueError(f"window attention kernel takes float32 or bfloat16, got {qkv.dtype}")
+    n, hd = qkv.shape[2], qkv.shape[-1]
+    if n > MAX_TOKENS:
+        raise ValueError(f"window attention kernel takes n <= {MAX_TOKENS} tokens, got {n}")
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"window attention kernel takes head_dim a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {hd}")
+    if qkv.stride(-1) != 1:
+        raise ValueError(f"head_dim stride must be 1, got strides {qkv.stride()}")
+
+
+def _launch(qkv: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            mask: torch.Tensor | None, qk_precision: str) -> torch.Tensor:
+    global launches
+    _check_precision(qk_precision)
+    check_inputs(qkv, scale, bias, mask)
+    b, nw, n, _, h, hd = qkv.shape
+    out = torch.empty((b, nw, n, h, hd), dtype=qkv.dtype, device=qkv.device)
+    scale32 = scale.float().contiguous()
+    bias32 = bias.float().contiguous()
+    mask32 = mask.float().contiguous() if mask is not None else None
+    lib = _library()
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.window_cosine_attention_launch(
+        qkv.data_ptr(), out.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
+        mask32.data_ptr() if mask32 is not None else None,
+        b, nw, n, h, hd, _DTYPE_CODES[qkv.dtype], int(qk_precision == "bf16"),
+        qkv.stride(0), qkv.stride(1), qkv.stride(2), qkv.stride(3), qkv.stride(4),
+        out.stride(0), out.stride(1), out.stride(2), out.stride(3),
+        stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"window_cosine_attention launch failed: cudaError_t {err}")
+    launches += 1
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def windowed_cosine_attention_packed(
+    qkv: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    mask: torch.Tensor | None,
+    *,
+    qk_precision: str = "default",
+) -> torch.Tensor:
+    """SwinV2 window attention, head-major out as in the JAX package.
+
+    Args:
+      qkv: (B, nW, n, 3, H, hd), the qkv projection of the unflattened
+        window tensor.
+      scale: (H,) exp-clamped per-head logit scale.
+      bias: (H, n, n) CPB relative-position bias (the 16*sigmoid form).
+      mask: (nW, n, n) additive shift mask, or None.
+
+    Returns (B, H, nW, n, hd): a view of a (B, nW, n, H, hd) tensor.
+    """
+    if qkv.device.type == "cpu":
+        return windowed_cosine_attention_packed_plain(
+            qkv, scale, bias, mask, qk_precision=qk_precision
+        )
+    return _launch(qkv, scale, bias, mask, qk_precision)
+
+
+def windowed_cosine_attention(
+    qkv: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    mask: torch.Tensor | None,
+    *,
+    n_windows: int,
+    qk_precision: str = "default",
+) -> torch.Tensor:
+    """Flat layout: (B*nW, n, 3, H, hd) in, (B*nW, n, H, hd) out."""
+    bnw, n, three, h, hd = qkv.shape
+    b = bnw // n_windows
+    out = windowed_cosine_attention_packed(
+        qkv.reshape(b, n_windows, n, three, h, hd), scale, bias, mask,
+        qk_precision=qk_precision,
+    )  # (B, H, nW, n, hd) view of (B, nW, n, H, hd)
+    return out.permute(0, 2, 3, 1, 4).reshape(bnw, n, h, hd)

@@ -24,6 +24,17 @@ JAXPKG = ROOT / "kobato_eyes_tpu"
 
 FORBIDDEN_ROOTS = {"kobato_eyes_tpu", "jax", "jaxlib", "flax", "optax", "orbax"}
 
+# modules the jax-blocked import must have reached, the SwinV2 slice's among them
+REQUIRED_MODULES = [
+    "kobato_eyes_tpu_torch.ops.attention",
+    "kobato_eyes_tpu_torch.ops.window_attention",
+    "kobato_eyes_tpu_torch.ops.layernorm_residual",
+    "kobato_eyes_tpu_torch.models.swin",
+    "kobato_eyes_tpu_torch.models.import_weights",
+    "kobato_eyes_tpu_torch.models.validate",
+    "kobato_eyes_tpu_torch.cli",
+]
+
 COPIED = [
     "models/base.py", "models/labels.py",
     "utils/image_io.py", "utils/hashing.py", "utils/paths.py",
@@ -98,6 +109,8 @@ def test_port_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        f"missing = sorted(set({REQUIRED_MODULES!r}) - set(names))\n"
+        "assert not missing, missing\n"
         "import chip_smoke\n"
         "leaked = sorted(m for m in sys.modules if m == 'kobato_eyes_tpu' or m.startswith('kobato_eyes_tpu.'))\n"
         "assert not leaked, leaked\n"
@@ -107,7 +120,13 @@ def test_port_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 30
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 33
+
+
+def test_ast_walk_covers_the_new_modules():
+    walked = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for name in REQUIRED_MODULES:
+        assert name.replace(".", "/") + ".py" in walked, name
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

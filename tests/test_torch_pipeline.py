@@ -22,6 +22,7 @@ from kobato_eyes_tpu.core.pipeline import run_index_once as jrun
 from kobato_eyes_tpu.db.connection import bootstrap as jbootstrap
 from kobato_eyes_tpu.db.connection import reset_bootstrap_cache as jreset
 from kobato_eyes_tpu.models import labels as jlabels
+from kobato_eyes_tpu.models import swin as jswin
 from kobato_eyes_tpu.models import tagger as jtagger
 from kobato_eyes_tpu.models import vit as jvit
 from kobato_eyes_tpu_torch import cli as tcli
@@ -32,6 +33,7 @@ from kobato_eyes_tpu_torch.db.connection import bootstrap as tbootstrap
 from kobato_eyes_tpu_torch.db.connection import reset_bootstrap_cache as treset
 from kobato_eyes_tpu_torch.models import import_weights as timport
 from kobato_eyes_tpu_torch.models import labels as tlabels
+from kobato_eyes_tpu_torch.models import swin as tswin
 from kobato_eyes_tpu_torch.models import tagger as ttagger
 from kobato_eyes_tpu_torch.models import vit as tvit
 
@@ -41,6 +43,10 @@ N_LABELS = 32
 SEED = 12
 MODEL = dict(image_size=64, patch_size=16, num_classes=N_LABELS)
 FILE_COLUMNS = "id, path, size, mtime, sha256, width, height, tagger_sig, is_present"
+# SwinV2 cut to 2 stages of narrow width at 32 px (grid 16 and 8, window 4)
+SWIN = dict(image_size=32, patch_size=2, embed_dim=16, depths=(2, 2), num_heads=(2, 4),
+            window_size=4, num_classes=N_LABELS)
+SWIN_SEED = 0
 
 
 @pytest.fixture(scope="module")
@@ -59,13 +65,24 @@ def library(tmp_path_factory):
     return root
 
 
-def _taggers():
-    jcfg = jvit.vit_config("tiny", **MODEL, dtype=jnp.float32)
-    tcfg = tvit.vit_config("tiny", **MODEL, dtype=torch.float32)
-    params = jax.tree.map(np.asarray, jvit.init_params(jcfg, seed=SEED))
-    j = jtagger.WD14Tagger(labels=jlabels.synthetic_labels(N_LABELS), vit=jcfg, params=params)
-    t = ttagger.WD14Tagger(labels=tlabels.synthetic_labels(N_LABELS), vit=tcfg, device="cpu",
-                           params=timport.vit_state_from_jax_params(params, tcfg))
+def _taggers(arch: str = "vit"):
+    """The JAX and the port's tagger on the same f32 weights; the SwinV2
+    pair runs its fast path (the window kernel's plain version in the port,
+    the Pallas kernel in interpret mode in the JAX package)."""
+    if arch == "swinv2":
+        jcfg = jswin.SwinConfig(**SWIN, dtype=jnp.float32, attn_impl="pallas")
+        tcfg = tswin.SwinConfig(**SWIN, dtype=torch.float32, attn_impl="pallas")
+        params = jax.tree.map(np.asarray, jswin.init_swin_params(jcfg, seed=SWIN_SEED))
+        state = timport.swin_state_from_jax_params(params, tcfg)
+        kw_j, kw_t = {"swin": jcfg}, {"swin": tcfg}
+    else:
+        jcfg = jvit.vit_config("tiny", **MODEL, dtype=jnp.float32)
+        tcfg = tvit.vit_config("tiny", **MODEL, dtype=torch.float32)
+        params = jax.tree.map(np.asarray, jvit.init_params(jcfg, seed=SEED))
+        state = timport.vit_state_from_jax_params(params, tcfg)
+        kw_j, kw_t = {"vit": jcfg}, {"vit": tcfg}
+    j = jtagger.WD14Tagger(labels=jlabels.synthetic_labels(N_LABELS), params=params, **kw_j)
+    t = ttagger.WD14Tagger(labels=tlabels.synthetic_labels(N_LABELS), device="cpu", params=state, **kw_t)
     return j, t
 
 
@@ -82,10 +99,9 @@ def _rows(bootstrap, db):
     return files, tags
 
 
-@pytest.fixture(scope="module")
-def indexed(library, tmp_path_factory):
+def _index_both(library, tmp_path_factory, arch: str):
     """Both packages index the library; returns their data dirs and stats."""
-    j, t = _taggers()
+    j, t = _taggers(arch)
     # exact tag equality is fair only if no probability sits on a threshold
     from kobato_eyes_tpu.utils.image_io import load_rgb_array
 
@@ -111,8 +127,18 @@ def indexed(library, tmp_path_factory):
     return out
 
 
-def test_index_runs_write_equal_catalogs(indexed):
-    (jdata, jstats), (tdata, tstats) = indexed["jax"], indexed["torch"]
+@pytest.fixture(scope="module")
+def indexed(library, tmp_path_factory):
+    return _index_both(library, tmp_path_factory, "vit")
+
+
+@pytest.fixture(scope="module")
+def indexed_swin(library, tmp_path_factory):
+    return _index_both(library, tmp_path_factory, "swinv2")
+
+
+def _assert_equal_catalogs(runs):
+    (jdata, jstats), (tdata, tstats) = runs["jax"], runs["torch"]
     assert (tstats.scanned, tstats.tagged, tstats.tag_failed) == (13, 12, 1)
     assert (tstats.scanned, tstats.tagged, tstats.tag_failed, tstats.written) == (
         jstats.scanned, jstats.tagged, jstats.tag_failed, jstats.written)
@@ -122,6 +148,14 @@ def test_index_runs_write_equal_catalogs(indexed):
     assert len(ttags) == len(jtags) > 12
     assert [r[:3] for r in ttags] == [r[:3] for r in jtags]
     np.testing.assert_allclose([r[3] for r in ttags], [r[3] for r in jtags], atol=1e-4)
+
+
+def test_index_runs_write_equal_catalogs(indexed):
+    _assert_equal_catalogs(indexed)
+
+
+def test_swinv2_index_runs_write_equal_catalogs(indexed_swin):
+    _assert_equal_catalogs(indexed_swin)
 
 
 def _search_lines(main, data, query, capsys):

@@ -17,10 +17,12 @@ import pytest
 import torch
 
 from kobato_eyes_tpu.models import labels as jlabels
+from kobato_eyes_tpu.models import swin as jswin
 from kobato_eyes_tpu.models import tagger as jtagger
 from kobato_eyes_tpu.models import vit as jvit
 from kobato_eyes_tpu_torch.models import import_weights as timport
 from kobato_eyes_tpu_torch.models import labels as tlabels
+from kobato_eyes_tpu_torch.models import swin as tswin
 from kobato_eyes_tpu_torch.models import tagger as ttagger
 from kobato_eyes_tpu_torch.models import vit as tvit
 
@@ -29,6 +31,10 @@ torch.set_num_threads(1)
 N_LABELS = 64
 SEED = 2
 MODEL = dict(image_size=64, patch_size=16, num_classes=N_LABELS)
+# SwinV2 cut to 2 stages of narrow width at 32 px (grid 16 and 8, window 4)
+SWIN = dict(image_size=32, patch_size=2, embed_dim=16, depths=(2, 2), num_heads=(2, 4),
+            window_size=4, num_classes=N_LABELS)
+SWIN_SEED = 27
 
 
 def _labels(mod):
@@ -54,6 +60,16 @@ def _pair(kind: str, fast_math: bool, **kw):
     j = jcls(labels=_labels(jlabels), vit=jcfg, params=params, fast_math=fast_math, **kw)
     t = tcls(labels=_labels(tlabels), vit=tcfg, fast_math=fast_math, device="cpu",
              params=timport.vit_state_from_jax_params(params, tcfg), **kw)
+    return j, t
+
+
+def _swin_pair(fast_math: bool, **kw):
+    jcfg = jswin.SwinConfig(**SWIN, dtype=jnp.float32)
+    tcfg = tswin.SwinConfig(**SWIN, dtype=torch.float32)
+    params = jax.tree.map(np.asarray, jswin.init_swin_params(jcfg, seed=SWIN_SEED))
+    j = jtagger.WD14Tagger(labels=_labels(jlabels), swin=jcfg, params=params, fast_math=fast_math, **kw)
+    t = ttagger.WD14Tagger(labels=_labels(tlabels), swin=tcfg, fast_math=fast_math, device="cpu",
+                           params=timport.swin_state_from_jax_params(params, tcfg), **kw)
     return j, t
 
 
@@ -103,6 +119,40 @@ def test_signature_fields_equal():
         assert t.signature_fields() == j.signature_fields()
 
 
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+def test_swinv2_tagger_results_equal(fast_math):
+    """SwinV2 (f32, the weights of seed 27, whose probabilities keep the
+    margins that make exact tag equality fair): the same tags as the JAX
+    tagger, through the window kernel's plain version when fast."""
+    j, t = _swin_pair(fast_math)
+    assert (t.arch, t.cfg.attn_impl, t.cfg.act, t.cfg.ln_impl) == (
+        j.arch, j.cfg.attn_impl, j.cfg.act, j.cfg.ln_impl)
+    imgs = [np.random.default_rng(SEED + i).integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+            for i, (h, w) in enumerate([(32, 32), (20, 45), (60, 35)])]
+    batch = j.prepare_batch_from_rgb(imgs)
+    _assert_margins(j, batch)
+    want = j.infer_batch_prepared(batch)
+    got = t.infer_batch_prepared(batch)
+    assert _plain(got) == _plain(want)
+    assert sum(len(r.tags) for r in want) > 10
+    for g, w in zip(_scores(got), _scores(want)):
+        np.testing.assert_allclose(g, w, atol=1e-4)
+
+
+def test_swinv2_signature_fields_equal():
+    j, t = _swin_pair(False, thresholds={0: 0.3}, topk_cap=64)
+    assert t.signature_fields() == j.signature_fields()
+    assert t.signature_fields()["arch"] == "swinv2-e16-d2.2-w4-32"
+
+
+def test_swinv2_arch_builds_the_preset():
+    t = ttagger.WD14Tagger(labels=tlabels.synthetic_labels(8), device="cpu", arch="swinv2",
+                           preset="tiny", image_size=224)
+    assert isinstance(t.cfg, tswin.SwinConfig) and t.cfg.embed_dim == 96
+    assert t.cfg.num_classes == 8 and (t.cfg.attn_impl, t.cfg.act) == ("einsum", "gelu")
+    assert t.signature_fields()["arch"] == "swinv2-e96-d2.2.6.2-w7-224"
+
+
 def test_fast_math_follows_the_device():
     t = ttagger.WD14Tagger(labels=tlabels.synthetic_labels(8), device="cpu",
                            vit=tvit.vit_config("tiny", image_size=32, num_classes=8))
@@ -117,11 +167,12 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "kw",
-    [{"arch": "swinv2"}, {"checkpoint_path": "ckpt"}, {"mesh": object()}, {"bf16_params": True}],
-    ids=["swinv2", "checkpoint", "mesh", "bf16_params"],
+    "kw,slice_name",
+    [({"checkpoint_path": "ckpt"}, "checkpoint IO"), ({"mesh": object()}, "multi-device"),
+     ({"bf16_params": True}, "bf16 weight cast")],
+    ids=["checkpoint", "mesh", "bf16_params"],
 )
-def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError):
+def test_later_slices_raise(kw, slice_name):
+    with pytest.raises(NotImplementedError, match=slice_name):
         ttagger.WD14Tagger(labels=tlabels.synthetic_labels(8), device="cpu",
                            vit=tvit.vit_config("tiny", image_size=32, num_classes=8), **kw)

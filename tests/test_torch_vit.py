@@ -43,9 +43,9 @@ def _port_model(params, tcfg):
     return model.eval()
 
 
-def _forward_both(dtype: str, features_only: bool = False, **knobs):
+def _forward_both(dtype: str, features_only: bool = False, seed: int = 1, **knobs):
     jcfg, tcfg = _configs(dtype, **knobs)
-    params = _jax_params_np(jcfg)
+    params = _jax_params_np(jcfg, seed=seed)
     x = np.random.default_rng(0).uniform(0, 255, size=(3, 32, 32, 3)).astype(np.float32)
     want = np.asarray(
         jvit.ViT(jcfg).apply({"params": params}, jnp.asarray(x), features_only=features_only),
@@ -96,6 +96,35 @@ def test_forward_parity_bf16(attn_impl):
     np.testing.assert_allclose(got, want, atol=4e-2)
 
 
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("attn_impl", ["einsum", "pallas"])
+def test_forward_parity_bf16_gelu_tanh(attn_impl, seed):
+    """With tanh-gelu, which the port evaluates op by op as XLA does
+    (``vit.gelu_tanh``), the bf16 logits agree to 2e-2, the JAX package's
+    bound for its own knobs: measured up to 0.0156 over these 4 weight seeds.
+    What is left is bf16 products summed in another order."""
+    got, want = _forward_both("bf16", seed=seed, attn_impl=attn_impl, act="gelu_tanh")
+    np.testing.assert_allclose(got, want, atol=2e-2)
+
+
+def test_gelu_tanh_matches_xla_bit_for_bit_in_bf16():
+    """``jax.nn.gelu(approximate=True)`` on 200 000 bf16 values of N(0, 9):
+    the port's op-by-op form equals XLA's on every one, where
+    ``F.gelu(x, approximate="tanh")``, one rounding, differs on 42.7%. The
+    exact erf form stays a parity fault (ROADMAP queue 3): ``F.gelu`` differs
+    from XLA's on 40.9% of these values."""
+    x = (np.random.default_rng(0).normal(size=200_000) * 3).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x, jnp.bfloat16), approximate=True), np.float32)
+    got = tvit.gelu_tanh(xt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    one_rounding = torch.nn.functional.gelu(xt, approximate="tanh").float().numpy()
+    assert 0.42 < (one_rounding != want).mean() < 0.44
+    want_erf = np.asarray(jax.nn.gelu(jnp.asarray(x, jnp.bfloat16), approximate=False), np.float32)
+    assert 0.40 < (torch.nn.functional.gelu(xt).float().numpy() != want_erf).mean() < 0.42
+
+
 def test_bf16_layers_match_except_activation():
     """Where bf16 rounding falls: the port's Linear, LayerNorm and attention
     product match flax's bit for bit; the activations, which XLA evaluates
@@ -139,13 +168,13 @@ def test_bf16_layers_match_except_activation():
         ("quick_gelu", lambda v: v * jax.nn.sigmoid(1.702 * v)),
     ):
         _, cfg = _configs("bf16", act=act)
-        mlp = tvit.Mlp(cfg)
+        mlp = tvit.Mlp(cfg.hidden_dim, cfg.mlp_dim, cfg)
         with torch.no_grad():
             mlp.fc1.weight.copy_(torch.eye(128, 64))  # fc1 passes x through
             mlp.fc1.bias.zero_()
             got = mlp.fc1(xt)
             got = {"gelu": lambda v: torch.nn.functional.gelu(v),
-                   "gelu_tanh": lambda v: torch.nn.functional.gelu(v, approximate="tanh"),
+                   "gelu_tanh": tvit.gelu_tanh,
                    "quick_gelu": lambda v: v * torch.sigmoid(1.702 * v)}[act](got)
         want = np.asarray(jax_fn(xj), np.float32)
         # one bf16 rounding (2^-7 relative) of the input's magnitude: where

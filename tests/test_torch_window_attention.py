@@ -1,0 +1,118 @@
+"""The port's window cosine attention (CPU path) against the JAX Pallas kernel.
+
+The JAX kernel runs as its own tests run it off the TPU: in interpret mode,
+at the dims of ``tests/ops/test_pallas_window_attention.py``. The port's
+wrapper takes its plain version for CPU tensors; the CUDA kernel itself is
+held against that plain version on the card by chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kobato_eyes_tpu.ops.pallas_window_attention import (
+    windowed_cosine_attention as jax_flat,
+    windowed_cosine_attention_packed as jax_packed,
+)
+from kobato_eyes_tpu_torch.ops import window_attention as wa
+
+torch.set_num_threads(1)
+
+# (B, nW, n, H, hd), the JAX kernel test's dims
+DIMS = [(2, 4, 49, 3, 16), (1, 16, 49, 4, 8), (2, 4, 196, 2, 32)]
+
+
+def _inputs(dims, masked: bool, seed: int = 0):
+    """Packed qkv (B, nW, n, 3, H, hd), scale, bias and mask as numpy, drawn
+    as the JAX test draws them."""
+    b, nw, n, h, hd = dims
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(b * nw, n, 3, h, hd)).astype(np.float32).reshape(b, nw, n, 3, h, hd)
+    scale = np.exp(rng.uniform(1.0, 2.0, h)).astype(np.float32)
+    bias = rng.normal(size=(h, n, n)).astype(np.float32)
+    mask = np.where(rng.random((nw, n, n)) < 0.1, -100.0, 0.0).astype(np.float32) if masked else None
+    return qkv, scale, bias, mask
+
+
+def _torch(*arrays):
+    return [None if a is None else torch.from_numpy(a) for a in arrays]
+
+
+def _jax(*arrays):
+    return [None if a is None else jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("qk_precision", ["default", "highest", "bf16"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("dims", DIMS, ids=lambda d: "x".join(map(str, d)))
+def test_matches_jax_kernel(dims, masked, qk_precision):
+    """5e-5, the JAX kernel test's tolerance; qk_precision="bf16" is held to
+    1e-3 (parity fault, ROADMAP queue 3): rounding the normalised q and k to
+    bf16 turns the 1-ulp f32 differences between XLA's and torch's rsqrt and
+    sum order into whole bf16 steps on about 0.2% of operands, which moves
+    the outputs by up to 4.4e-4 at n=196."""
+    qkv, scale, bias, mask = _inputs(dims, masked)
+    want = np.asarray(jax_packed(*_jax(qkv, scale, bias, mask), qk_precision=qk_precision))
+    got = wa.windowed_cosine_attention_packed(*_torch(qkv, scale, bias, mask), qk_precision=qk_precision)
+    b, nw, n, h, hd = dims
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, h, nw, n, hd)
+    # the kernel's layout: a view of a contiguous (B, nW, n, H, hd) tensor
+    assert got.permute(0, 2, 3, 1, 4).is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3 if qk_precision == "bf16" else 5e-5)
+
+
+@pytest.mark.parametrize("dims", DIMS[:2], ids=lambda d: "x".join(map(str, d)))
+def test_flat_form_matches_jax(dims):
+    qkv, scale, bias, mask = _inputs(dims, masked=True, seed=1)
+    b, nw, n, h, hd = dims
+    flat = qkv.reshape(b * nw, n, 3, h, hd)
+    want = np.asarray(jax_flat(*_jax(flat, scale, bias, mask), n_windows=nw))
+    got = wa.windowed_cosine_attention(*_torch(flat, scale, bias, mask), n_windows=nw)
+    assert tuple(got.shape) == (b * nw, n, h, hd)
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5)
+
+
+def test_bf16_matches_jax_kernel():
+    """bf16 qkv: the exp weights round to bf16 in both; the output agrees to
+    the repo's bf16 kernel tolerance (3e-2)."""
+    qkv, scale, bias, mask = _inputs(DIMS[0], masked=True, seed=2)
+    jq = jnp.asarray(qkv, jnp.bfloat16)
+    want = np.asarray(jax_packed(jq, *_jax(scale, bias, mask)), np.float32)
+    got = wa.windowed_cosine_attention_packed(
+        torch.from_numpy(qkv).to(torch.bfloat16), *_torch(scale, bias, mask)
+    )
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2)
+
+
+def test_production_bounds_stay_finite():
+    """Clamped scale 100, CPB bias at its 16 ceiling, one window masked off
+    the diagonal: the row-max shift keeps every row finite."""
+    b, nw, n, h, hd = 1, 4, 196, 2, 32
+    rng = np.random.default_rng(2)
+    qkv = rng.normal(size=(b * nw, n, 3, h, hd)).astype(np.float32).reshape(b, nw, n, 3, h, hd)
+    scale = np.full((h,), 100.0, np.float32)
+    bias = np.full((h, n, n), 16.0, np.float32)
+    mask = np.zeros((nw, n, n), np.float32)
+    mask[0] = -100.0
+    np.fill_diagonal(mask[0], 0.0)
+    want = np.asarray(jax_packed(*_jax(qkv, scale, bias, mask)))
+    got = wa.windowed_cosine_attention_packed(*_torch(qkv, scale, bias, mask)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=5e-4)
+
+
+def test_rejects_bad_inputs():
+    qkv, scale, bias, mask = _torch(*_inputs(DIMS[0], masked=True))
+    with pytest.raises(ValueError, match="qk_precision"):
+        wa.windowed_cosine_attention_packed(qkv, scale, bias, mask, qk_precision="tf32")
+    with pytest.raises(ValueError, match="bias"):
+        wa.windowed_cosine_attention_packed(qkv, scale, bias[:, :-1], mask)
+    with pytest.raises(ValueError, match="mask"):
+        wa.windowed_cosine_attention_packed(qkv, scale, bias, mask[:-1])
+    # the kernel's own checks: CUDA tensors only, n and head_dim in range
+    with pytest.raises(ValueError, match="CUDA"):
+        wa.check_inputs(qkv, scale, bias, mask)
