@@ -17,7 +17,15 @@ batch 32, random seeded weights):
   ``search --backend sql`` through the CLI, a forward with the residual
   LayerNorm kernel (``ln_impl="pallas_residual"``), and
   ``validate-checkpoint --arch swinv2`` through the CLI on the index
-  tagger's saved weights.
+  tagger's saved weights;
+* dup: the dup benchmark's 70 000-hash population through
+  ``TpuDuplicateScanner`` on the host route (C++ band scan) and the device
+  route (resident bitmask scan), the threshold sweep, the CPU oracle on a
+  subset, a 1M population through the resident multi-word scan against the
+  host scan, and ``audit_clusters`` over the 70k clusters with the
+  all-pairs Hamming kernel; then ``index`` (fused signatures), ``dup
+  --sweep --audit`` and ``dup --refine`` through the CLI over 48 seeded
+  images with re-encodes and resizes.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 and read just after. It checks each tagger's fast forward against its exact
@@ -42,10 +50,13 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): device memory rate and the bf16
-# tensor-core rate. The attention kernel's bound uses these.
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory rate, the bf16
+# tensor-core rate and the f32 rate outside the tensor cores. The kernels'
+# bounds use these.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12
+DEVICE = "cuda"
 
 VIT_B448 = dict(batch=32, tokens=785, heads=12, head_dim=64)
 # SwinV2-B/448 window attention per stage: (windows per image, heads); every
@@ -56,6 +67,14 @@ SWIN_WINDOW = 7
 N_IMAGES = 256
 BATCH = 32
 N_LABELS = 8192
+# dup path: the dup benchmark's population (70 000 hashes, 30% planted
+# near-duplicates, threshold 8), a 1M population above the host/device
+# crossover, the audit's batch bound, and the CLI library's base images
+N_DUP = 70_000
+N_DUP_BIG = 1_000_000
+DUP_SEED = 1234
+AUDIT_BATCH = 4096
+DUP_LIB_IMAGES = 48
 
 
 class SmokeFailure(RuntimeError):
@@ -65,6 +84,12 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def synchronize() -> None:
+    import torch
+
+    torch.cuda.synchronize()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -413,6 +438,416 @@ def layernorm_residual_phase() -> dict:
     }
 
 
+def pairwise_hamming_phase() -> dict:
+    """Kernel 5 against its plain version, exact, at the audit's batch
+    (4096 x 4096), a stripe (4096 x 6000), ragged shapes and known values;
+    then its time at 4096 x 4096 beside the plain version, the byte bound and
+    the copy of the result to the host (what the audit does with it)."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.ops import pairwise_hamming as pw
+
+    dev = torch.device(DEVICE)
+
+    def hashes(n, seed):
+        return pw.hashes_to_tensor(np.random.default_rng(seed).integers(0, 1 << 64, size=n, dtype=np.uint64), dev)
+
+    def compare(name, a, b):
+        got = pw.pairwise_hamming_tensor(a, b)
+        want = pw.pairwise_hamming_plain(a, b)
+        synchronize()
+        check(got.dtype == torch.int32 and got.shape == want.shape, f"pairwise {name}: dtype/shape")
+        err = int((got - want).abs().max()) if got.numel() else 0
+        print(f"pairwise_hamming {name}: max_abs_err={err} (exact)")
+        check(err == 0, f"pairwise {name}: max_abs_err {err} != 0")
+        errs.append(err)
+        return got
+
+    errs = []
+
+    a = hashes(AUDIT_BATCH, 30)
+    compare(f"{AUDIT_BATCH}x{AUDIT_BATCH}", a, a)
+    compare(f"{AUDIT_BATCH}x6000 stripe", a, hashes(6000, 31))
+    compare("300x300", hashes(300, 32), hashes(300, 32))
+    compare("70x513", hashes(70, 33), hashes(513, 34))
+    known = pw.hashes_to_tensor(np.array([0, 0xFFFFFFFFFFFFFFFF, 1], np.uint64), dev)
+    got = compare("known values", known, known).cpu()
+    check((int(got[0, 1]), int(got[0, 2]), int(got[1, 2])) == (64, 1, 63), "pairwise known values")
+
+    ms = cuda_ms(lambda: pw.pairwise_hamming_tensor(a, a), iters=50)
+    plain_ms = cuda_ms(lambda: pw.pairwise_hamming_plain(a, a), iters=5)
+    out = pw.pairwise_hamming_tensor(a, a)
+    synchronize()
+    d2h = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out.cpu()
+        d2h.append((time.perf_counter() - t0) * 1e3)
+    n = AUDIT_BATCH
+    bytes_moved = n * n * 4 + 2 * n * 8
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    # xor, popcount and store: a few integer operations a distance on the
+    # CUDA cores, counted at the non-tensor f32 rate
+    t_ops = 4.0 * n * n / F32_FLOPS_PER_S * 1e3
+    print(
+        f"pairwise_hamming {n}x{n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {max(t_ops, t_bytes):.4f} ms ({bytes_moved / 1e6:.1f} MB, bytes), "
+        f"result copy to host {min(d2h):.3f} ms (min of 5; all {', '.join(f'{x:.3f}' for x in d2h)})"
+    )
+    return {
+        "name": "pairwise_hamming",
+        "route": "cuda",
+        "source": "kobato_eyes_tpu_torch/csrc/pairwise_hamming.cu",
+        "replaces": "kobato_eyes_tpu/ops/pallas_hamming.py:56",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": None,  # torch has no popcount: no single call computes this
+    }
+
+
+# ---------------------------------------------------------------------------
+# Dup path: the banded scan, the cluster engine and the cohesion audit
+# ---------------------------------------------------------------------------
+
+
+def synth_hashes(n: int, seed: int) -> "np.ndarray":
+    """Synthetic pHash population with planted near-duplicate clusters: 30%
+    of the hashes copy a random original and flip 0..6 random bits (the
+    repository's dup benchmark population, ``bench.py:synth_hashes``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_dups = int(n * 0.3)
+    n_orig = n - n_dups
+    originals = rng.integers(0, 1 << 64, size=n_orig, dtype=np.uint64)
+    src = rng.integers(0, n_orig, size=n_dups)
+    dups = originals[src].copy()
+    for i in range(n_dups):
+        k = int(rng.integers(0, 7))
+        for bit in rng.integers(0, 64, size=k):
+            dups[i] ^= np.uint64(1) << np.uint64(bit)
+    out = np.concatenate([originals, dups])
+    rng.shuffle(out)
+    return out
+
+
+def _dup_timers() -> str:
+    from kobato_eyes_tpu_torch.utils.metrics import metrics
+
+    timers = metrics.snapshot()["timers"]
+    return " ".join(f"{k}={v['total'] * 1e3:.1f}ms" for k, v in sorted(timers.items())
+                    if k.startswith("dup."))
+
+
+def _audit_batches(clusters, batch: int) -> list[tuple[int, int]]:
+    """The (rows, columns) of each kernel launch ``audit_clusters`` makes:
+    whole clusters packed into batches of at most ``batch`` members, one
+    launch each; a larger cluster takes one launch per ``batch``-row stripe."""
+    shapes, total = [], 0
+    for cl in clusters:
+        m = len(cl.files)
+        if m > batch:
+            if total:
+                shapes.append((total, total))
+            shapes += [(min(batch, m - s), m) for s in range(0, m, batch)]
+            total = 0
+            continue
+        if total + m > batch:
+            shapes.append((total, total))
+            total = 0
+        total += m
+    return shapes + ([(total, total)] if total else [])
+
+
+def dup_scan_phase() -> int:
+    """The 70k population through the engine on both routes, the sweep, the
+    CPU oracle on a subset, a 1M population through the resident scan, and
+    the cohesion audit over the 70k clusters. Returns the audit's launches
+    of kernel 5."""
+    from pathlib import Path as _P
+
+    import numpy as np
+
+    from kobato_eyes_tpu_torch.dup import audit
+    from kobato_eyes_tpu_torch.dup.cpu_ref import CpuDuplicateScanner
+    from kobato_eyes_tpu_torch.dup.engine import TpuDuplicateScanner, cluster_ids
+    from kobato_eyes_tpu_torch.dup.types import DuplicateFileMeta, DuplicateScanConfig
+    from kobato_eyes_tpu_torch.native import build as native_build
+    from kobato_eyes_tpu_torch.ops import hamming, pairwise_hamming
+    from kobato_eyes_tpu_torch.utils.metrics import metrics
+
+    t0 = time.perf_counter()
+    hashes = synth_hashes(N_DUP, DUP_SEED)
+    sizes = np.random.default_rng(DUP_SEED + 1).integers(10_000, 5_000_000, size=N_DUP)
+    files = [
+        DuplicateFileMeta(file_id=i, path=_P(f"/bench/img_{i:07d}.png"), size=int(sizes[i]),
+                          width=None, height=None, phash=int(hashes[i]))
+        for i in range(N_DUP)
+    ]
+    config = DuplicateScanConfig(hamming_threshold=8)
+    print(f"dup population: {N_DUP} hashes in {time.perf_counter() - t0:.1f} s")
+
+    runs = {}
+    for route, host_scan_max in (("host", None), ("device", 0)):
+        scanner = TpuDuplicateScanner(config, device=DEVICE, host_scan_max=host_scan_max)
+        for attempt in ("first", "warm"):
+            metrics.reset()
+            t0 = time.perf_counter()
+            clusters = scanner.build_clusters(files)
+            synchronize()
+            wall = time.perf_counter() - t0
+            print(f"dup scan {N_DUP} {route} route ({attempt}): {len(clusters)} clusters, "
+                  f"{sum(len(c.files) for c in clusters)} members, wall {wall * 1e3:.1f} ms, "
+                  f"window {scanner._scanner.last_window}; {_dup_timers()}")
+        runs[route] = (scanner, clusters)
+    check(not hamming._NATIVE_SCAN_UNAVAILABLE, "the native band scan did not load (numpy fallback)")
+    check({"module:hamming_scan", "module:assembly"} <= set(native_build._CACHE),
+          f"native modules loaded: {sorted(native_build._CACHE)}")
+    host_ids = cluster_ids(runs["host"][1])
+    check(len(host_ids) > 1000, f"only {len(host_ids)} clusters at 70k")
+    check(cluster_ids(runs["device"][1]) == host_ids, "device-route clusters != host-route clusters")
+    check(0 < runs["device"][0]._scanner.last_window <= 32, "70k device scan window outside 1..32")
+
+    metrics.reset()
+    t0 = time.perf_counter()
+    sweep = runs["device"][0].build_clusters_sweep(files, range(0, 9))
+    print(f"dup sweep 0..8 device route: {time.perf_counter() - t0:.3f} s; {_dup_timers()}")
+    host_sweep = runs["host"][0].build_clusters_sweep(files, range(0, 9))
+    for t in range(9):
+        check(cluster_ids(sweep[t]) == cluster_ids(host_sweep[t]), f"sweep threshold {t}: device != host")
+    print("dup sweep: clusters per threshold " + ", ".join(f"{t}:{len(sweep[t])}" for t in range(9)))
+
+    subset = files[:5000]
+    want = cluster_ids(CpuDuplicateScanner(config).build_clusters(subset))
+    got = cluster_ids(TpuDuplicateScanner(config, device=DEVICE, host_scan_max=0).build_clusters(subset))
+    check(got == want and len(want) > 0, "5000-hash subset: device route != CpuDuplicateScanner")
+    print(f"dup oracle: 5000-hash subset, {len(want)} clusters equal to CpuDuplicateScanner")
+
+    # 1M hashes: above the default crossover, so the resident device scan
+    big = synth_hashes(N_DUP_BIG, DUP_SEED + 2)
+    scanner = hamming.BandedHammingScanner(device=DEVICE)
+    check(scanner.host_scan_max < N_DUP_BIG, "1M population would route to the host")
+    for attempt in ("first", "warm"):
+        metrics.reset()
+        t0 = time.perf_counter()
+        ei, ej, ed = scanner.scan(big, hamming_threshold=8)
+        wall = time.perf_counter() - t0
+        print(f"dup scan {N_DUP_BIG} device route ({attempt}): {len(ei)} edges, "
+              f"window {scanner.last_window} (max run {scanner._max_run}), wall {wall * 1e3:.1f} ms; "
+              f"{_dup_timers()}")
+    check(scanner.last_window > 32, f"1M window {scanner.last_window} <= 32: the multi-word scan did not run")
+    t0 = time.perf_counter()
+    hi, hj, hd = hamming.host_window_scan(big, band_bits=16, band_count=4, hamming_threshold=8)
+    print(f"dup host scan {N_DUP_BIG}: {len(hi)} edges in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    order_d = np.lexsort((ej, ei))
+    order_h = np.lexsort((hj, hi))
+    check(len(ei) == len(hi) and np.array_equal(ei[order_d], hi[order_h])
+          and np.array_equal(ej[order_d], hj[order_h]) and np.array_equal(ed[order_d], hd[order_h]),
+          "1M device-scan edges != host_window_scan edges")
+
+    clusters = runs["host"][1]
+    shapes = _audit_batches(clusters, AUDIT_BATCH)
+    expected = len(shapes)
+    pairwise_hamming.launches = 0
+    t0 = time.perf_counter()
+    stats = audit.audit_clusters(clusters, device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = pairwise_hamming.launches
+    t0 = time.perf_counter()
+    want = audit.audit_clusters_np(clusters)
+    np_wall = time.perf_counter() - t0
+    as_tuples = lambda ss: [(s.keeper_id, s.size, s.diameter, s.mean_distance, s.keeper_max) for s in ss]  # noqa: E731
+    check(as_tuples(stats) == as_tuples(want), "audit stats != audit_clusters_np")
+    check(launches == expected, f"audit launches {launches} != {expected} batches")
+
+    # where the audit's time goes: the same audit again with each batch's
+    # kernel (synchronised) and its copy to the host timed apart
+    real = audit.pairwise_hamming
+    split = {"kernel": 0.0, "copy": 0.0}
+
+    def timed(a_u64, b_u64=None, *, device=None):
+        ta = pairwise_hamming.hashes_to_tensor(a_u64, DEVICE)
+        tb = ta if b_u64 is None else pairwise_hamming.hashes_to_tensor(b_u64, DEVICE)
+        synchronize()
+        t0 = time.perf_counter()
+        out = pairwise_hamming.pairwise_hamming_tensor(ta, tb)
+        synchronize()
+        t1 = time.perf_counter()
+        host = out.cpu().numpy()
+        split["kernel"] += t1 - t0
+        split["copy"] += time.perf_counter() - t1
+        return host
+
+    audit.pairwise_hamming = timed
+    try:
+        t0 = time.perf_counter()
+        audit.audit_clusters(clusters, device=DEVICE)
+        wall2 = time.perf_counter() - t0
+    finally:
+        audit.pairwise_hamming = real
+    print(f"audit {len(clusters)} clusters ({sum(len(c.files) for c in clusters)} members): "
+          f"{launches} launches, wall {wall * 1e3:.1f} ms (numpy spec {np_wall * 1e3:.1f} ms); "
+          f"timed apart: wall {wall2 * 1e3:.1f} ms, kernel launch+run {split['kernel'] * 1e3:.1f} ms, "
+          f"copy to host {split['copy'] * 1e3:.1f} ms, rest (packing, numpy reductions) "
+          f"{(wall2 - split['kernel'] - split['copy']) * 1e3:.1f} ms; diameter max "
+          f"{max(s.diameter for s in stats)}")
+
+    # the kernel at the shapes the audit launched it with, each timed with
+    # CUDA events on seeded hashes
+    rng = np.random.default_rng(DUP_SEED + 3)
+    times, bounds = [], []
+    for rows, cols in shapes:
+        ta = pairwise_hamming.hashes_to_tensor(rng.integers(0, 1 << 64, size=rows, dtype=np.uint64), DEVICE)
+        tb = pairwise_hamming.hashes_to_tensor(rng.integers(0, 1 << 64, size=cols, dtype=np.uint64), DEVICE)
+        times.append(cuda_ms(lambda: pairwise_hamming.pairwise_hamming_tensor(ta, tb), iters=20))
+        bounds.append((rows * cols * 4 + (rows + cols) * 8) / HBM_BYTES_PER_S * 1e3)
+    print(f"pairwise_hamming at the audit's {len(shapes)} launch shapes: kernel {sum(times):.4f} ms in all "
+          f"against a byte bound of {sum(bounds):.4f} ms; "
+          + ", ".join(f"{r}x{c} {t:.4f} ms" for (r, c), t in zip(shapes, times)))
+    return launches
+
+
+def write_dup_library(root: Path) -> dict[str, str]:
+    """48 seeded images, a JPEG q=85 re-encode of 16 of them and a 0.9x
+    resize of 8; returns {derivative name: base name}."""
+    import numpy as np
+    from PIL import Image
+
+    write_library(root, DUP_LIB_IMAGES, seed=7)
+    bases = sorted(root.iterdir())
+    derived = {}
+    rng = np.random.default_rng(8)
+    for i in rng.choice(len(bases), size=16, replace=False):
+        p = bases[int(i)]
+        Image.open(p).convert("RGB").save(root / f"{p.stem}_q85.jpg", quality=85)
+        derived[f"{p.stem}_q85.jpg"] = p.name
+    for i in rng.choice(len(bases), size=8, replace=False):
+        p = bases[int(i)]
+        img = Image.open(p).convert("RGB")
+        img.resize((int(img.width * 0.9), int(img.height * 0.9)), Image.Resampling.LANCZOS).save(
+            root / f"{p.stem}_r90.png")
+        derived[f"{p.stem}_r90.png"] = p.name
+    return derived
+
+
+def _hash_tiles(kind: str, shape: tuple[int, int], n: int, seed: int) -> "np.ndarray":
+    """n seeded float32 grayscale tiles: uniform noise, or smooth photo-like
+    fields (bicubic up-sampled 4x4 noise, what the LANCZOS front end gives)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return rng.uniform(0, 255, size=(n, *shape)).astype(np.float32)
+    h, w = shape
+    return np.stack([
+        np.asarray(Image.fromarray(t).resize((w, h), Image.Resampling.BICUBIC), np.float32)
+        for t in rng.integers(0, 256, size=(n, 4, 4), dtype=np.uint8)
+    ])
+
+
+def dup_cli_phase(work: Path) -> int:
+    """pHash/dHash words on the card against their specs; ``index`` (dummy
+    tagger, fused signatures) then ``dup --sweep --audit`` and ``dup
+    --refine`` through the port's CLI; the catalog's signature words and the
+    refine pass's device words and sums against their specs. Returns the
+    kernel-5 launches of the ``dup --audit`` run."""
+    import numpy as np
+
+    from kobato_eyes_tpu_torch.core.config.schema import PipelineSettings, Settings, TaggerSettings
+    from kobato_eyes_tpu_torch.core.config.service import save_settings
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.db.repository import missing_signature_ids
+    from kobato_eyes_tpu_torch.dup.refine_clusters import _load_small_gray
+    from kobato_eyes_tpu_torch.ops import mae, pairwise_hamming, phash, tile_hash
+    from kobato_eyes_tpu_torch.sig.signatures import _decode_one
+    from kobato_eyes_tpu_torch.utils.bits import U64_MASK, u32pair_to_u64
+
+    # the device DCT (float64) and bit packing, exact against the specs
+    for kind in ("uniform", "smooth"):
+        g32 = _hash_tiles(kind, (32, 32), 512, seed=40)
+        g98 = _hash_tiles(kind, (8, 9), 512, seed=41)
+        ph = u32pair_to_u64(phash.to_u32pairs(phash.phash_batch(g32, device=DEVICE)))
+        dh = u32pair_to_u64(phash.to_u32pairs(phash.dhash_batch(g98, device=DEVICE)))
+        ph_bad = sum(int(h) != phash.phash_np(g) for h, g in zip(ph, g32))
+        dh_bad = sum(int(h) != phash.dhash_np(g) for h, g in zip(dh, g98))
+        print(f"phash/dhash on the card, 512 {kind} tiles: {ph_bad} pHash and {dh_bad} dHash words "
+              f"differ from phash_np/dhash_np")
+        check(ph_bad == 0 and dh_bad == 0, f"{kind} tiles: device hash words != specs")
+
+    lib = work / "dup_library"
+    derived = write_dup_library(lib)
+    n_files = DUP_LIB_IMAGES + len(derived)
+    settings = Settings(pipeline=PipelineSettings(roots=[lib], batch_size=BATCH),
+                        tagger=TaggerSettings(name="dummy"))
+    check(settings.pipeline.inline_signatures, "inline_signatures is not the default")
+    cfg = work / "dup_settings.yaml"
+    save_settings(settings, cfg)
+    data = work / "dup_data"
+    base = ["--config", str(cfg), "--data-dir", str(data), "--device", DEVICE]
+
+    stats = json.loads(run_cli(base + ["index"]).strip().splitlines()[-1])
+    print(f"dup library index: tagged={stats['tagged']} signatures_fused={stats['extra']['signatures_fused']} "
+          f"elapsed_sec={stats['elapsed_sec']:.3f}")
+    check(stats["tagged"] == n_files, f"tagged {stats['tagged']} != {n_files}")
+    check(stats["extra"]["signatures_fused"] == stats["tagged"],
+          f"signatures_fused {stats['extra']['signatures_fused']} != tagged {stats['tagged']}")
+    conn = bootstrap(data / "db" / "catalog.sqlite3")
+    try:
+        check(missing_signature_ids(conn) == [], "files without signatures after a fused index")
+        rows = conn.execute("SELECT f.path, s.phash_u64, s.dhash_u64 FROM files f "
+                            "JOIN signatures s ON s.file_id = f.id").fetchall()
+    finally:
+        conn.close()
+    # the fused lane's words in the catalog against the specs on the same
+    # files, decoded by the standalone lane's front end
+    check(len(rows) == n_files, f"{len(rows)} signature rows != {n_files} files")
+    bad = []
+    for path, ph_s64, dh_s64 in rows:
+        g32, g98 = _decode_one(path)
+        if (ph_s64 & U64_MASK, dh_s64 & U64_MASK) != (phash.phash_np(g32), phash.dhash_np(g98)):
+            bad.append(Path(path).name)
+    print(f"catalog signatures: {len(rows) - len(bad)}/{len(rows)} pHash/dHash pairs equal the specs")
+    check(not bad, f"fused signature words != phash_np/dhash_np for {bad[:5]}")
+
+    pairwise_hamming.launches = 0
+    out = run_cli(base + ["dup", "--sweep", "--audit"])
+    launches = pairwise_hamming.launches
+    cluster_of = {}
+    for line in out.splitlines():
+        if "  " in line and "h=" in line:
+            cluster_of[Path(line.rsplit("  ", 1)[1].strip()).name] = int(line.split()[0])
+    together = sum(1 for d, b in derived.items() if d in cluster_of and cluster_of.get(d) == cluster_of.get(b))
+    print(f"dup --sweep --audit: {len(set(cluster_of.values()))} clusters over {len(cluster_of)} files; "
+          f"{together}/{len(derived)} derivatives share their base's cluster; kernel launches {launches}")
+    check(together == len(derived), "a re-encode or resize does not share its base's cluster")
+    check(launches > 0, "dup --audit launched no pairwise_hamming kernel")
+
+    refined = run_cli(base + ["dup", "--refine"])
+    n_refined = len({int(line.split()[0]) for line in refined.splitlines() if "h=" in line})
+    print(f"dup --refine: {n_refined} clusters")
+
+    # the refine pass's device words and sums against the specs, on the
+    # thumbnails refinement decodes
+    paths = sorted(lib.iterdir())
+    thumbs = np.stack([_load_small_gray(p, 64) for p in paths])
+    words = tile_hash.tile_ahash_batch(thumbs, grid=8, tile=8, device=DEVICE)
+    check(all(tile_hash.words_to_int(w) == tile_hash.tile_ahash_np(t, 8, 8) for w, t in zip(words, thumbs)),
+          "tile-aHash words != tile_ahash_np")
+    big = np.stack([_load_small_gray(p, 128) for p in paths])
+    keeper = np.roll(np.arange(len(paths)), 1)
+    sums = mae.abs_diff_sums(big, big[keeper], device=DEVICE)
+    maes = (sums.astype(np.float64) / (128 * 128)) / 255.0
+    check(all(float(m) == mae.mae01_np(a, b) for m, a, b in zip(maes, big, big[keeper])), "MAE sums != mae01_np")
+    print(f"refine ops on the card: tile-aHash words and MAE sums of {len(paths)} thumbnails equal the specs")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # Slice phase: the port's CLI over a seeded library
 # ---------------------------------------------------------------------------
@@ -689,6 +1124,8 @@ def main() -> int:
     attn = attention_phase()
     window = window_attention_phase()
     ln = layernorm_residual_phase()
+    hamming = pairwise_hamming_phase()
+    kernels = [attn, window, ln, hamming]
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_root))
@@ -696,10 +1133,12 @@ def main() -> int:
         lib, labels, cfg = write_workspace(work)
         attn["launches"] = slice_phase(work, lib, labels, cfg)
         window["launches"], ln["launches"] = swin_phase(work, lib, labels, cfg)
+        hamming["launches"] = dup_scan_phase()
+        dup_cli_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [attn, window, ln]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -12,10 +12,14 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 Layering (low to high; enforced by tests/test_torch_imports.py):
 
     utils    -> stdlib/PIL/numpy helpers
+    native   -> host C++ (band scan, cluster assembly), built with g++ at first use
     device   -> device selection
-    ops      -> hand-written CUDA kernels with their plain torch versions
+    ops      -> hand-written CUDA kernels with their plain torch versions,
+                and the device passes of hashing and the banded scan
     db       -> host durability catalog (SQLite)
-    models   -> ViT tagger (nn.Module), pre/postprocess
+    models   -> ViT / SwinV2 taggers (nn.Module), pre/postprocess
+    sig      -> pHash/dHash signatures: host decode + batched device pass
+    dup      -> duplicate clusters: scan engine, refinement, cohesion audit
     query    -> tag query language: AST, SQL backend
     services -> async write-back services
     core     -> config, scanner, pipeline stages

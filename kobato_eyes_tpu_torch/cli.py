@@ -1,9 +1,11 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 Counterpart of ``kobato_eyes_tpu/cli.py`` for the commands ported so far:
-``index`` (scan + tag + write), ``search`` over the SQL backend and
-``validate-checkpoint`` (import -> exact-vs-fast parity -> tag flips). The
-device query engine and the other commands come with later slices.
+``index`` (scan + tag + write, with fused signatures), ``search`` over the
+SQL backend, ``dup`` (duplicate scan, sweep, refinement, cohesion audit,
+export, trash) and ``validate-checkpoint`` (import -> exact-vs-fast parity
+-> tag flips). The device query engine and the other commands come with
+later slices.
 
 Usage: ``python -m kobato_eyes_tpu_torch.cli [--device cuda|cpu] <command> ...``
 """
@@ -11,6 +13,7 @@ Usage: ``python -m kobato_eyes_tpu_torch.cli [--device cuda|cpu] <command> ...``
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import logging
 import sys
@@ -79,7 +82,7 @@ def cmd_index(args) -> int:
     from kobato_eyes_tpu_torch.core.pipeline import run_index_once
 
     tagger = _resolve_tagger(settings, args.device)
-    stats = run_index_once(db, settings, tagger, progress=_progress_printer)
+    stats = run_index_once(db, settings, tagger, progress=_progress_printer, device=args.device)
     print(file=sys.stderr)
     print(json.dumps(stats.__dict__, default=str))
     return 0
@@ -123,6 +126,137 @@ def cmd_search(args) -> int:
     return 0
 
 
+def _export_csv(dest: str, rows: list[dict]) -> Path:
+    """Timestamped CSV export (reference utils/search_export.py semantics)."""
+    base = Path(dest)
+    if base.suffix != ".csv":
+        base = base / f"search_{time.strftime('%Y%m%d_%H%M%S')}.csv"
+    base.parent.mkdir(parents=True, exist_ok=True)
+    with base.open("w", newline="", encoding="utf-8") as fh:
+        writer = csv.writer(fh)
+        keys = [k for k in rows[0] if k != "tags"] if rows else ["file_id", "path", "relevance"]
+        writer.writerow(keys)
+        for r in rows:
+            writer.writerow([r.get(k) for k in keys])
+    return base
+
+
+def cmd_dup(args) -> int:
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.db.repository import iter_files_for_dup, missing_signature_ids, upsert_signatures
+    from kobato_eyes_tpu_torch.dup.engine import TpuDuplicateScanner
+    from kobato_eyes_tpu_torch.dup.types import DuplicateFileMeta, DuplicateScanConfig
+    from kobato_eyes_tpu_torch.sig.signatures import compute_signatures
+
+    conn = bootstrap(db)
+    try:
+        missing = missing_signature_ids(conn)
+        if missing:
+            print(f"computing {len(missing)} missing signatures...", file=sys.stderr)
+            batch = compute_signatures(
+                missing, io_workers=settings.pipeline.io_workers, device=args.device
+            )
+            with conn:
+                upsert_signatures(conn, zip(batch.file_ids, batch.phash, batch.dhash))
+        rows = iter_files_for_dup(conn)
+    finally:
+        conn.close()
+
+    metas = [
+        DuplicateFileMeta(
+            file_id=int(r["id"]), path=Path(r["path"]), size=r["size"],
+            width=r["width"], height=r["height"], phash=r["phash_u64"],
+        )
+        for r in rows
+        if r["phash_u64"] is not None
+    ]
+    cfg = DuplicateScanConfig(
+        hamming_threshold=args.hamming if args.hamming is not None else settings.dup.hamming_threshold,
+        band_bits=settings.dup.band_bits, band_count=settings.dup.band_count,
+        size_ratio=args.size_ratio if args.size_ratio is not None else settings.dup.size_ratio,
+        bucket_pair_cap=settings.dup.bucket_pair_cap,
+    )
+    import torch
+
+    if str(args.device).startswith("cuda") and torch.cuda.device_count() > 1:
+        print(f"dup: {torch.cuda.device_count()} GPUs visible; the scan runs on one "
+              f"({args.device}): the sharded scan is not ported yet", file=sys.stderr)
+    scanner = TpuDuplicateScanner(cfg, device=args.device)
+    if args.sweep:
+        # interactive-slider workload: one scan, clusters for every threshold
+        sweep = scanner.build_clusters_sweep(metas, range(0, cfg.hamming_threshold + 1))
+        for t, cl in sweep.items():
+            print(f"hamming<={t}: {len(cl)} clusters", file=sys.stderr)
+        clusters = sweep[cfg.hamming_threshold]
+    else:
+        clusters = scanner.build_clusters(metas)
+
+    if args.refine:
+        from kobato_eyes_tpu_torch.dup.refine_clusters import refine_by_pixels, refine_by_tilehash
+
+        r = settings.refine
+        clusters = refine_by_tilehash(
+            clusters, grid=r.grid, tile=r.tile, max_bits=r.max_bits,
+            io_workers=settings.pipeline.io_workers, device=args.device,
+        )
+        clusters = refine_by_pixels(
+            clusters, mae_thr=r.mae_threshold, thumb_size=r.mae_size,
+            io_workers=settings.pipeline.io_workers, device=args.device,
+        )
+
+    if args.audit:
+        from kobato_eyes_tpu_torch.dup.audit import audit_clusters, summarize
+
+        print(summarize(audit_clusters(clusters, device=args.device)), file=sys.stderr)
+
+    if args.trash_duplicates:
+        # UI "trash checked" parity (dup_tab.py:816-836): non-keepers move to
+        # the data-dir trash (reversible) and their rows go absent.
+        from kobato_eyes_tpu_torch.db.repository import mark_files_absent
+        from kobato_eyes_tpu_torch.utils.fs import append_trash_record, trash_file
+
+        trash_dir = get_app_paths(args.data_dir or settings.data_dir).root / "trash"
+        trashed_ids: list[int] = []
+        for cluster in clusters:
+            for entry in cluster.files:
+                if entry.file.file_id == cluster.keeper_id:
+                    continue
+                dest = trash_file(entry.file.path, trash_dir=trash_dir)
+                if dest is not None:
+                    append_trash_record(
+                        trash_dir, file_id=entry.file.file_id,
+                        original=entry.file.path, trashed=dest,
+                    )
+                    trashed_ids.append(entry.file.file_id)
+        if trashed_ids:
+            conn = bootstrap(db)
+            try:
+                with conn:
+                    mark_files_absent(conn, trashed_ids)
+            finally:
+                conn.close()
+        print(f"trashed {len(trashed_ids)} duplicates -> {trash_dir}", file=sys.stderr)
+
+    out_rows = []
+    for ci, cluster in enumerate(clusters):
+        for entry in cluster.files:
+            out_rows.append({
+                "cluster": ci, "file_id": entry.file.file_id,
+                "keeper": int(entry.file.file_id == cluster.keeper_id),
+                "hamming": entry.best_hamming, "path": str(entry.file.path),
+            })
+    if args.export:
+        out = _export_csv(args.export, out_rows)
+        print(f"exported {len(out_rows)} rows to {out}", file=sys.stderr)
+    else:
+        for row in out_rows:
+            marker = "*" if row["keeper"] else " "
+            print(f"{row['cluster']:5d} {marker} h={row['hamming']}  {row['path']}")
+    print(f"{len(clusters)} clusters", file=sys.stderr)
+    return 0
+
+
 def cmd_validate_checkpoint(args) -> int:
     """Import -> strict manifest -> exact-vs-fast forward parity -> tag parity
     at production thresholds; exit 0 iff everything holds (models/validate.py)."""
@@ -152,7 +286,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", help="settings.yaml path")
     parser.add_argument("--data-dir", help="data directory override")
     parser.add_argument("--device", default="cuda",
-                        help="torch device for the tagger (default cuda; 'cpu' to run without a GPU)")
+                        help="torch device for the tagger, signatures and the dup scan "
+                             "(default cuda; 'cpu' to run without a GPU)")
     parser.add_argument("-v", "--verbose", action="store_true")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -167,6 +302,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit", type=int, default=200)
     p.add_argument("--offset", type=int, default=0)
     p.set_defaults(fn=cmd_search)
+
+    p = sub.add_parser("dup", help="duplicate scan (+ refinement)")
+    p.add_argument("--hamming", type=int)
+    p.add_argument("--size-ratio", type=float)
+    p.add_argument("--refine", action="store_true")
+    p.add_argument("--export", help="CSV file or directory")
+    p.add_argument("--trash-duplicates", action="store_true",
+                   help="move non-keepers to the data-dir trash and mark absent")
+    p.add_argument("--sweep", action="store_true",
+                   help="report cluster counts for every threshold 0..hamming")
+    p.add_argument("--audit", action="store_true",
+                   help="dense intra-cluster Hamming audit (diameter/mean/"
+                        "keeper eccentricity) for threshold tuning")
+    p.set_defaults(fn=cmd_dup)
 
     p = sub.add_parser(
         "validate-checkpoint",

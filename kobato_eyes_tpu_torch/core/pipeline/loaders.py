@@ -174,9 +174,12 @@ class PrefetchLoader:
         record.width, record.height = arr.shape[1], arr.shape[0]
         grays = None
         if record.file_id in self._sig_need:
-            # the port's orchestrator passes no sig_need until the signature
-            # slice ports sig/signatures.py
-            raise NotImplementedError("fused signatures wait for the signature slice")
+            from kobato_eyes_tpu_torch.sig.signatures import gray_pair_from_rgb
+
+            try:
+                grays = gray_pair_from_rgb(arr)
+            except Exception:  # noqa: BLE001 — best-effort; standalone lane covers
+                logger.warning("hash-tile prep failed for %s", record.path, exc_info=True)
         pixels = self._prepare([arr])[0]
         if self._cache is not None:
             self._cache.put(record, pixels, record.width, record.height)

@@ -4,9 +4,13 @@ Counterpart of ``kobato_eyes_tpu/core/pipeline/orchestrator.py``. Stage
 overrides allow tests (and retag flows) to inject fakes, mirroring
 ``set_stage_override``. The write phase holds the quiesce gate.
 
+With ``settings.pipeline.inline_signatures`` (the default) the tag stage
+fuses pHash/dHash into its decode and dispatch for every tagged file that
+lacks a signature row; the hash pass runs on the tagger's device, or on
+``device`` for a tagger without one (the dummy).
+
 What the JAX package runs beyond that comes with later slices of the port:
-the ANN embed lane (``settings.index.enabled``) and the fused signature lane
-(``settings.pipeline.inline_signatures``) each log one warning and are
+the ANN embed lane (``settings.index.enabled``) logs one warning and is
 skipped, and the device query epoch swap (``epoch_manager``) raises.
 """
 
@@ -26,6 +30,7 @@ from kobato_eyes_tpu_torch.core.pipeline.scan_stage import ScanStage, ScanStageC
 from kobato_eyes_tpu_torch.core.pipeline.tag_stage import TagStage, TagStageResult
 from kobato_eyes_tpu_torch.core.progress import IndexPhase, ProgressCallback, ProgressEmitter
 from kobato_eyes_tpu_torch.db.connection import bootstrap, quiesced
+from kobato_eyes_tpu_torch.device import resolve_device
 from kobato_eyes_tpu_torch.models.base import ITagger
 from kobato_eyes_tpu_torch.services.writer import CatalogWriter
 
@@ -57,6 +62,7 @@ class IndexPipeline:
         epoch_manager: Any = None,
         progress: ProgressCallback | None = None,
         is_cancelled: Callable[[], bool] | None = None,
+        device=None,
     ) -> None:
         if epoch_manager is not None:
             raise NotImplementedError(
@@ -65,6 +71,9 @@ class IndexPipeline:
         self._db_path = Path(db_path)
         self._settings = settings
         self._tagger = tagger
+        # where the fused hash pass runs: the tagger's device, else ``device``
+        tagger_device = getattr(tagger, "device", None)
+        self._device = tagger_device if tagger_device is not None else device
         self._progress = ProgressEmitter(progress)
         self._is_cancelled = is_cancelled or (lambda: False)
         self._tagger_sig = current_tagger_sig(tagger.signature_fields())
@@ -116,11 +125,26 @@ class IndexPipeline:
                 "index.enabled: the ANN embed lane comes with the ANN slice of "
                 "the port; no vectors are computed"
             )
-        if self._settings.pipeline.inline_signatures:
-            logger.warning(
-                "pipeline.inline_signatures: fused pHash/dHash come with the "
-                "signature slice of the port; no signatures are computed"
-            )
+
+        # SIG SETUP — files being tagged that lack duplicate signatures get
+        # pHash/dHash fused into the same decode + dispatch (the words ride
+        # the WriteItems); `ket dup` then finds no missing signatures and
+        # skips its own decode pass. Content-changed files refresh theirs.
+        sig_need: set[int] = set()
+        sig_device = None
+        if self._settings.pipeline.inline_signatures and not self._is_cancelled():
+            from kobato_eyes_tpu_torch.db.repository import missing_signature_ids
+
+            sig_device = resolve_device(self._device)
+            conn = bootstrap(self._db_path)
+            try:
+                missing = {fid for fid, _ in missing_signature_ids(conn)}
+            finally:
+                conn.close()
+            sig_need = {
+                r.file_id for r in scan.records
+                if r.file_id in missing or r.content_changed
+            }
 
         # TAG + WRITE under the quiesce gate (exclusive writer phase).
         tag_result = TagStageResult()
@@ -147,6 +171,8 @@ class IndexPipeline:
                         input_cache_dir=cache_dir,
                         is_cancelled=self._is_cancelled,
                         pipeline_depth=self._settings.pipeline.pipeline_depth,
+                        sig_need=sig_need,
+                        sig_device=sig_device,
                     ).run(scan.records, writer, self._progress)
                 finally:
                     self._progress.phase(IndexPhase.WRITE)
@@ -159,6 +185,7 @@ class IndexPipeline:
         # device dispatch+fetch inside the tag wall; the remainder is host
         # decode/prepare/queue time the in-flight window could not hide
         stats.extra["tag_infer_s"] = round(tag_result.infer_seconds, 3)
+        stats.extra["signatures_fused"] = tag_result.signed
 
         stats.elapsed_sec = time.perf_counter() - t0
         self._progress.phase(IndexPhase.DONE)
@@ -174,9 +201,12 @@ def run_index_once(
     epoch_manager: Any = None,
     progress: ProgressCallback | None = None,
     is_cancelled: Callable[[], bool] | None = None,
+    device=None,
 ) -> IndexStats:
-    """Headless single-pass API (reference run_index_once)."""
+    """Headless single-pass API (reference run_index_once). ``device`` places
+    the fused signature pass when the tagger has no device of its own."""
     return IndexPipeline(
         db_path, settings, tagger,
         epoch_manager=epoch_manager, progress=progress, is_cancelled=is_cancelled,
+        device=device,
     ).run()

@@ -9,9 +9,11 @@ behaviors from the reference (``core/pipeline/stages/tag_stage.py``):
 * duplicate tag names within one result keep the max score (:283-292);
 * emits WriteItems to the async writer and flips record state.
 
-The JAX package fuses the ANN embedding forward and the pHash/dHash kernels
-into the tag dispatch; those lanes come with the ANN and signature slices of
-the port, so this stage tags only.
+The pHash/dHash words of files in ``sig_need`` are computed from the same
+decode: the loader makes the grayscale hash tiles, this stage queues the
+hash pass on ``sig_device`` beside the batch's dispatch, and the words ride
+the WriteItems. The JAX package also fuses the ANN embedding forward; that
+lane comes with the ANN slice of the port.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Protocol, Sequence
+
+import numpy as np
 
 from kobato_eyes_tpu_torch.core.pipeline.contracts import FileRecord, WriteItem
 from kobato_eyes_tpu_torch.core.pipeline.loaders import PreparedBatch, PrefetchLoader
@@ -42,6 +46,7 @@ class TagStageResult:
     infer_seconds: float = 0.0
     batches: int = 0
     failed_ids: list[int] = field(default_factory=list)
+    signed: int = 0  # pHash/dHash signatures fused into tag dispatches
 
 
 class TagStage:
@@ -56,6 +61,8 @@ class TagStage:
         input_cache_dir: str | None = None,
         is_cancelled: Callable[[], bool] | None = None,
         pipeline_depth: int = 3,
+        sig_need: set[int] | None = None,
+        sig_device=None,
     ) -> None:
         self._tagger = tagger
         self._tagger_sig = tagger_sig
@@ -65,6 +72,14 @@ class TagStage:
         self._input_cache_dir = input_cache_dir
         self._is_cancelled = is_cancelled or (lambda: False)
         self._pipeline_depth = max(1, int(pipeline_depth))
+        # Fused signatures (tag+sig): files whose pHash/dHash should be
+        # computed from the tag stage's decode — the loader produces the
+        # grayscale hash tiles, this stage chains the hash pass onto the
+        # batch dispatch, and the words ride the WriteItems. Any failure is
+        # a downgrade: the standalone compute_signatures lane (ket dup)
+        # covers whatever has no signature row.
+        self._sig_need = sig_need or set()
+        self._sig_device = sig_device
 
     def run(
         self,
@@ -95,6 +110,7 @@ class TagStage:
             io_workers=self._io_workers,
             cache=cache,
             is_cancelled=self._is_cancelled,
+            sig_need=self._sig_need,
         )
         # Bounded in-flight pipeline: up to pipeline_depth batches are
         # dispatched before the oldest is fetched, so host decode and the
@@ -127,7 +143,8 @@ class TagStage:
                 progress.emit(IndexProgress(IndexPhase.TAG, done, len(todo)))
                 continue
             result.infer_seconds += time.perf_counter() - t0
-            inflight.append((batch, handle))
+            sig_pending = self._sig_dispatch(batch)
+            inflight.append((batch, handle, sig_pending))
             if len(inflight) >= self._pipeline_depth:
                 done += self._complete_pipelined(*inflight.popleft(), sink=sink, result=result)
                 progress.emit(IndexProgress(IndexPhase.TAG, done, len(todo)))
@@ -146,8 +163,38 @@ class TagStage:
         )
         return result
 
+    def _sig_dispatch(self, batch: PreparedBatch):
+        """Queue the pHash/dHash pass for the batch's hash tiles (fused
+        tag+sig) WITHOUT syncing; returns (indices, pending) or None."""
+        idxs = [i for i, g in enumerate(batch.grays) if g is not None]
+        if not idxs:
+            return None
+        try:
+            from kobato_eyes_tpu_torch.sig.signatures import dispatch_hash_batch
+
+            g32 = np.stack([batch.grays[i][0] for i in idxs])
+            g98 = np.stack([batch.grays[i][1] for i in idxs])
+            return idxs, dispatch_hash_batch(g32, g98, device=self._sig_device)
+        except Exception:  # noqa: BLE001 — standalone signature lane covers
+            logger.warning("fused sig dispatch failed; batch downgraded", exc_info=True)
+            return None
+
+    def _sig_complete(self, pending) -> dict[int, tuple[int, int]]:
+        """Fetch a dispatched hash pair -> {batch index: (phash, dhash)}."""
+        if pending is None:
+            return {}
+        idxs, handles = pending
+        try:
+            from kobato_eyes_tpu_torch.sig.signatures import complete_hash_batch
+
+            ph, dh = complete_hash_batch(handles)
+            return {i: (p, d) for i, p, d in zip(idxs, ph, dh)}
+        except Exception:  # noqa: BLE001 — standalone signature lane covers
+            logger.warning("fused sig completion failed; batch downgraded", exc_info=True)
+            return {}
+
     def _complete_pipelined(
-        self, batch: PreparedBatch, handle: tuple, *,
+        self, batch: PreparedBatch, handle: tuple, sig_pending=None, *,
         sink: WriteSink, result: TagStageResult,
     ) -> int:
         """Fetch one in-flight batch; device failures re-run it through the
@@ -164,9 +211,14 @@ class TagStage:
             )
             self._infer_with_retry(batch, sink, result)
             return len(batch.records)
+        sigs = self._sig_complete(sig_pending)
         now = time.time()
-        for record, output in zip(batch.records, outputs):
-            sink.put(self._to_write_item(record, output, now))
+        for i, (record, output) in enumerate(zip(batch.records, outputs)):
+            sig = sigs.get(i)
+            if sig is not None:
+                record.signed = True
+                result.signed += 1
+            sink.put(self._to_write_item(record, output, now, sig=sig))
             record.tagged = True
             result.tagged += 1
         return len(batch.records)
@@ -201,13 +253,22 @@ class TagStage:
                 self._infer_with_retry(sub, sink, result)
             return
 
+        # fused sigs on the sync path: dispatch + complete back-to-back
+        sigs = self._sig_complete(self._sig_dispatch(batch))
         now = time.time()
-        for record, output in zip(batch.records, outputs):
-            sink.put(self._to_write_item(record, output, now))
+        for i, (record, output) in enumerate(zip(batch.records, outputs)):
+            sig = sigs.get(i)
+            if sig is not None:
+                record.signed = True
+                result.signed += 1
+            sink.put(self._to_write_item(record, output, now, sig=sig))
             record.tagged = True
             result.tagged += 1
 
-    def _to_write_item(self, record: FileRecord, output: TagResult, now: float) -> WriteItem:
+    def _to_write_item(
+        self, record: FileRecord, output: TagResult, now: float,
+        sig: tuple[int, int] | None = None,
+    ) -> WriteItem:
         # Duplicate names keep the max score (reference tag_stage.py:283-292).
         merged: dict[str, tuple[float, int]] = {}
         for t in output.tags:
@@ -221,4 +282,6 @@ class TagStage:
             height=record.height,
             tagger_sig=self._tagger_sig,
             tagged_at=now,
+            phash=sig[0] if sig is not None else None,
+            dhash=sig[1] if sig is not None else None,
         )
