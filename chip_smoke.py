@@ -177,7 +177,8 @@ def attention_phase() -> dict:
         check(got.dtype == qkv.dtype and got.shape == want.shape, f"{name}: dtype/shape")
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         err = float((got.float() - want.float()).abs().max())
-        print(f"attention {name}: max_abs_err={err:.3e} (tol {tol:g})")
+        variant = attn.kernel_variant(qkv.dtype, qkv.shape[-1])
+        print(f"attention {name} [{variant}]: max_abs_err={err:.3e} (tol {tol:g})")
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
         return err
 
@@ -194,6 +195,23 @@ def attention_phase() -> dict:
     ext = torch.from_numpy(_extreme_qkv(64, 2, 32, seed=3)).to(dev)
     compare("logits +-1e4 f32", ext, 1.0, 5e-5)
     compare("logits +-1e4 bf16", ext.to(torch.bfloat16), 1.0, 5e-2)
+    # the tensor-core kernel's tiling: lengths around its 64-key tiles and
+    # its 128-row q tiles (a second warpgroup with and without rows); B * H = 15
+    check(attn.kernel_variant(torch.bfloat16, 64) == "wgmma" and
+          attn.kernel_variant(torch.float32, 64) == "fma", "attention kernel variants")
+    for t_len in (1, 17, 63, 64, 65, 127, 128, 129, 768, 785, 832):
+        compare(f"bf16 T={t_len} D=64", qkv_of((3, t_len, 3, 5, 64), torch.bfloat16, 100 + t_len),
+                0.125, 3e-2)
+    for t_len in (17, 129, 785):  # D = 32: 64-byte swizzle, a scale that is no power of two
+        compare(f"bf16 T={t_len} D=32", qkv_of((3, t_len, 3, 5, 32), torch.bfloat16, 200 + t_len),
+                32**-0.5, 3e-2)
+    # a strided slice of a larger projection: batch stride != T * 3 * H * D
+    big = qkv_of((4, 200, 3, 5, 64), torch.bfloat16, 300)
+    compare("bf16 strided slice T=129", big[1:, 2:131], 0.125, 3e-2)
+    compare("bf16 unpacked T=129 D=32", qkv_of((2, 129, 3, 3, 32), torch.bfloat16, 301),
+            32**-0.5, 3e-2, packed=False)
+    ext129 = torch.from_numpy(_extreme_qkv(129, 3, 64, seed=4)).to(dev, torch.bfloat16)
+    compare("logits +-1e4 bf16 T=129 D=64", ext129, 1.0, 5e-2)
     const = qkv_of((1, 37, 3, 2, 64), torch.float32, 5)
     const[:, :, 2] = 3.25
     got = attn.head_resident_attention_packed(const, scale=0.25)
@@ -265,35 +283,58 @@ def window_attention_phase() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
 
-    def compare(name, qkv, scale, bias, mask, tol, qk_precision="default"):
+    def compare(name, qkv, scale, bias, mask, tol, qk_precision="default", variant=None):
         got = wa.windowed_cosine_attention_packed(qkv, scale, bias, mask, qk_precision=qk_precision)
         want = wa.windowed_cosine_attention_packed_plain(qkv, scale, bias, mask, qk_precision=qk_precision)
         torch.cuda.synchronize()
         check(got.dtype == qkv.dtype and got.shape == want.shape, f"window {name}: dtype/shape")
         check(bool(torch.isfinite(got).all()), f"window {name}: non-finite output")
         err = float((got.float() - want.float()).abs().max())
-        print(f"window attention {name}: max_abs_err={err:.3e} (tol {tol:g})")
+        ran = wa.kernel_variant(qkv.dtype, qkv.shape[2], qkv.shape[-1], aligned=wa.aligned_for_mma(qkv))
+        print(f"window attention {name} [{ran}]: max_abs_err={err:.3e} (tol {tol:g})")
+        check(variant is None or ran == variant, f"window {name}: ran {ran}, expected {variant}")
         check(err <= tol, f"window {name}: max_abs_err {err} > {tol}")
         return err
 
     b, n, hd = BATCH, SWIN_WINDOW**2, 32
     errs = []
     main = {}
-    for stage in (0, 2):
-        nw, h = SWIN_B448_STAGES[stage]
+    for stage, (nw, h) in enumerate(SWIN_B448_STAGES):
         for masked in (False, True):
             ins = _window_inputs(b, nw, n, h, hd, torch.bfloat16, 10 + stage, masked)
             # bf16 output: one bf16 rounding of |out| <= ~4 is 2^-6
             errs.append(compare(f"swinv2-b448 stage {stage} bf16 {'masked' if masked else 'unmasked'}",
-                                *ins, 3e-2))
+                                *ins, 3e-2, variant="mma"))
             if masked:
                 main[stage] = ins
     # f32: 5e-5, the JAX package's kernel tolerance (sums in another order)
-    compare("f32 stage 1 masked B=4", *_window_inputs(4, 64, n, 8, hd, torch.float32, 20, True), 5e-5)
-    compare("n=196 f32 masked", *_window_inputs(2, 4, 196, 2, 32, torch.float32, 21, True), 5e-5)
-    compare("n=196 hd=16 bf16", *_window_inputs(2, 4, 196, 3, 16, torch.bfloat16, 22, False), 3e-2)
+    compare("f32 stage 1 masked B=4", *_window_inputs(4, 64, n, 8, hd, torch.float32, 20, True), 5e-5,
+            variant="rows")
+    compare("n=196 f32 masked", *_window_inputs(2, 4, 196, 2, 32, torch.float32, 21, True), 5e-5,
+            variant="rows")
+    compare("n=196 hd=16 bf16", *_window_inputs(2, 4, 196, 3, 16, torch.bfloat16, 22, False), 3e-2,
+            variant="rows")
     compare("qk_precision=bf16 f32", *_window_inputs(2, 16, n, 4, hd, torch.float32, 23, True), 5e-5,
-            qk_precision="bf16")
+            qk_precision="bf16", variant="rows")
+    compare("qk_precision=bf16 bf16", *_window_inputs(2, 16, n, 4, hd, torch.bfloat16, 24, True), 3e-2,
+            qk_precision="bf16", variant="mma")
+    # the tensor-core kernel off the main path's shape: window 8, other head
+    # widths, a head count that leaves a warp without a head, fewer windows
+    # than blocks, a strided slice of a larger projection
+    compare("n=64 hd=16 bf16 H=6", *_window_inputs(2, 4, 64, 6, 16, torch.bfloat16, 25, True), 3e-2,
+            variant="mma")
+    compare("n=64 hd=32 bf16 H=3", *_window_inputs(3, 4, 64, 3, 32, torch.bfloat16, 26, True), 3e-2,
+            variant="mma")
+    compare("n=49 hd=64 bf16", *_window_inputs(2, 16, n, 4, 64, torch.bfloat16, 27, True), 3e-2,
+            variant="mma")
+    compare("n=64 hd=64 bf16", *_window_inputs(2, 4, 64, 2, 64, torch.bfloat16, 28, False), 3e-2,
+            variant="rows")
+    compare("n=16 hd=32 bf16 B=1 nW=1", *_window_inputs(1, 1, 16, 4, hd, torch.bfloat16, 29, False), 3e-2,
+            variant="mma")
+    qkv, scale, bias, mask = _window_inputs(3, 16, n, 8, hd, torch.bfloat16, 30, True)
+    big = torch.zeros((4, 16, n + 3, 3, 8, hd), dtype=torch.bfloat16, device=dev)
+    big[1:, :, 2:n + 2] = qkv
+    compare("bf16 strided slice", big[1:, :, 2:n + 2], scale, bias, mask, 3e-2, variant="mma")
     # production bounds: clamped scale 100, CPB bias at its 16 ceiling, one
     # window masked off the diagonal: rows survive on the diagonal only
     qkv, _, _, _ = _window_inputs(1, 4, 196, 2, 32, torch.float32, 2, False)
@@ -303,13 +344,18 @@ def window_attention_phase() -> dict:
     mask_np[0] = -100.0
     for i in range(196):
         mask_np[0, i, i] = 0.0
-    compare("production bounds f32", qkv, scale, bias, torch.from_numpy(mask_np).to(dev), 5e-4)
+    compare("production bounds f32", qkv, scale, bias, torch.from_numpy(mask_np).to(dev), 5e-4,
+            variant="rows")
+    qkv, _, _, _ = _window_inputs(2, 4, n, 4, hd, torch.bfloat16, 3, False)
+    compare("production bounds bf16 n=49", qkv, torch.full((4,), 100.0, device=dev),
+            torch.full((4, n, n), 16.0, device=dev),
+            torch.from_numpy(np.ascontiguousarray(mask_np[:, :n, :n])).to(dev), 3e-2, variant="mma")
 
     rows = []
-    for stage in (0, 2):
+    for stage, (nw, h) in enumerate(SWIN_B448_STAGES):
         qkv, scale, bias, mask = main[stage]
-        nw, h = SWIN_B448_STAGES[stage]
         ms = cuda_ms(lambda: wa.windowed_cosine_attention_packed(qkv, scale, bias, mask), iters=20)
+        unmasked_ms = cuda_ms(lambda: wa.windowed_cosine_attention_packed(qkv, scale, bias, None), iters=20)
         plain_ms = cuda_ms(lambda: wa.windowed_cosine_attention_packed_plain(qkv, scale, bias, mask), iters=5)
         # yardstick: SDPA on pre-normalised, per-head-scaled q and k laid out
         # (B, nW*H, n, hd) with attn_mask = bias + mask; the normalisation
@@ -327,15 +373,20 @@ def window_attention_phase() -> dict:
             lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn_mask, scale=1.0),
             iters=20,
         )
+        del q, k, v, qn, kn, qs, ks, vs, attn_mask
         flops = 4.0 * n * n * hd * b * nw * h
         bytes_moved = (qkv.numel() + b * nw * n * h * hd) * qkv.element_size() + (bias.numel() + mask.numel()) * 4
-        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        # under "default" the q k^T half of the operations has f32 operands
+        # (the FMA units' rate), the P V half bf16 ones (the tensor cores')
+        t_ops = (flops / 2 / F32_FLOPS_PER_S + flops / 2 / BF16_FLOPS_PER_S) * 1e3
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         print(
-            f"window attention swinv2-b448 stage {stage} bf16 B={b} nW={nw} H={h}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa call alone {library_ms:.4f} ms, "
-            f"bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.1f} MB, "
-            f"{'bytes' if t_bytes >= t_ops else 'operations'})"
+            f"window attention swinv2-b448 stage {stage} bf16 B={b} nW={nw} H={h}: kernel {ms:.4f} ms "
+            f"({unmasked_ms:.4f} ms without a mask), plain {plain_ms:.4f} ms, sdpa call alone {library_ms:.4f} ms, "
+            f"bound {max(t_ops, t_bytes):.4f} ms (bytes {t_bytes:.4f}: {bytes_moved / 1e6:.1f} MB; operations "
+            f"{t_ops:.4f}: {flops / 1e9:.2f} GFLOP, half of them on f32 operands at {F32_FLOPS_PER_S / 1e12:.0f} "
+            f"TFLOP/s; {'bytes' if t_bytes >= t_ops else 'operations'} bound), "
+            f"kernel moves {bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s"
         )
         rows.append((stage, ms, plain_ms, library_ms, t_ops, t_bytes))
     _, ms, plain_ms, library_ms, t_ops, t_bytes = rows[0]  # stage 0 is the reported shape

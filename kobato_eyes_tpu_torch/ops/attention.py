@@ -9,12 +9,25 @@ rounded to v's dtype, f32 row sums, f32 PV accumulation divided after.
 
 On the card the bound is operations: about 60.6 GFLOP per call at the
 ViT-B/448 batch-32 shape (4*T^2*D*B*H with T=785, H=12, D=64) against 154 MB
-of qkv read and output written. The TPU kernel held a head's whole (T, T)
-logits on chip, which does not fit a Hopper block's 227 KB of shared memory,
-so the CUDA kernel (``csrc/head_resident_attention.cu``) tiles the keys with
-an online softmax and never writes the logits to device memory. It reads q,
-k and v through strides straight from the packed (B, T, 3, H, D) projection
-and writes (B, T, H, D), so no transpose copies surround it.
+of qkv read and output written, so the products belong on the tensor cores.
+The TPU kernel held a head's whole (T, T) logits on chip, which does not fit
+a Hopper block's 227 KB of shared memory, so the CUDA kernels
+(``csrc/head_resident_attention.cu``) tile the keys with an online softmax
+and never write the logits to device memory. They read q, k and v through
+strides straight from the packed (B, T, 3, H, D) projection and write
+(B, T, H, D), so no transpose copies surround them. ``kernel_variant`` says
+which kernel a call runs:
+
+* ``"wgmma"``: bfloat16, D in (32, 64). A q tile of 128 rows a block, 64
+  per warpgroup; K and V in 64-key tiles through a three-stage ``cp.async``
+  ring in swizzled shared memory; ``S = Q K^T`` and ``O += P V`` by
+  ``wgmma`` with f32 accumulation, the next tile's S started together with
+  this tile's P V; the online softmax on the accumulator fragment and P
+  rounded to bf16 in registers (the register operand of the second
+  product). It copies 16 bytes at a time, so a bfloat16 view that is not
+  16-byte aligned, or whose strides are not multiples of 8, raises.
+* ``"fma"``: float32, D in (32, 64). f32 FMAs out of shared memory: tensor
+  cores would mean TF32 operands, which the port does not use.
 
 A wrapper launches the kernel for a CUDA tensor and raises if the launch
 fails; it takes the plain version only for a CPU tensor. ``launches`` counts
@@ -32,6 +45,16 @@ launches = 0
 _SOURCE = "head_resident_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
+
+
+def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel of ``csrc/head_resident_attention.cu`` a CUDA call runs:
+    ``"wgmma"`` (tensor cores) for bfloat16, ``"fma"`` for float32."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"attention kernel takes float32 or bfloat16, got {dtype}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head_dim in {_HEAD_DIMS}, got {head_dim}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 # ---------------------------------------------------------------------------
@@ -83,10 +106,25 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def check_alignment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on bfloat16 views the ``"wgmma"`` kernel cannot copy 16 bytes at
+    a time: addresses must be multiples of 16 bytes and strides multiples of
+    8 elements. No other bfloat16 kernel takes such a view (the window
+    wrapper, unlike this one, has its ``"rows"`` kernel for it): make it
+    contiguous first. float32 tensors are read one element at a time."""
+    if q.dtype != torch.bfloat16:
+        return
+    for x in (q, k, v):
+        if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:-1]):
+            raise ValueError("the bfloat16 attention kernel needs 16-byte aligned q, k, v "
+                             f"with strides that are multiples of 8, got strides {x.stride()}")
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on what the kernel does not take: it needs CUDA tensors of one
-    dtype (float32 or bfloat16), D in (32, 64) with unit stride, and q, k, v
-    sharing their shape and strides (the packed views do)."""
+    dtype (float32 or bfloat16), D in (32, 64) with unit stride, q, k, v
+    sharing their shape and strides (the packed views do), and bfloat16
+    views aligned as ``check_alignment`` says."""
     for x in (q, k, v):
         if x.device.type != "cuda":
             raise ValueError(f"attention kernel needs CUDA tensors, got {x.device}")
@@ -103,6 +141,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError("q, k and v must be on one device")
     if q.stride(-1) != 1:
         raise ValueError(f"head_dim stride must be 1, got strides {q.stride()}")
+    check_alignment(q, k, v)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:

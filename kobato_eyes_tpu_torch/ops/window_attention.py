@@ -15,12 +15,28 @@ operands, which is what the JAX function computes on the CPU (on the TPU,
 rounds the normalised q and k to bf16 first, as the JAX kernel does.
 
 On the card the bound is bytes: the qkv projection is read once and the
-output written once (411 MB at SwinV2-B/448 stage 0, batch 32). The CUDA
-kernel (``csrc/window_cosine_attention.cu``) runs one block per (batch,
-window, head), reads q, k and v through strides from the packed
-(B, nW, n, 3, H, hd) projection, and writes a (B, nW, n, H, hd) buffer. The
-public functions return it as a (B, H, nW, n, hd) view, the JAX layout, so
-the caller can read the buffer as (B*nW, n, C) with no copy.
+output written once (411 MB at SwinV2-B/448 stage 0, batch 32, 0.12 ms at
+the card's memory rate); the f32-operand q k^T products (half of the
+operations) cost 0.075 ms on the FMA units at their peak, so the kernel has
+to keep those fed and its loads wide. ``csrc/window_cosine_attention.cu``
+holds two kernels and ``kernel_variant`` says which one a call runs:
+
+* ``"mma"``: bfloat16 qkv with hd 16 or 32 and n <= 64, or hd 64 and
+  n <= 56: every SwinV2 stage at window 7 or 8. One block an SM, bound to
+  four neighbouring heads whose bias tables stay in shared memory, walks
+  over the (batch, window)s, a warp a head; 16-byte ``cp.async`` loads a
+  window ahead; q and k normalised in f32 into shared memory; the logits
+  accumulated by f32 FMAs in the mma fragment layout and kept in registers
+  through scale, bias, mask, max and exp; the bf16 weights times V on the
+  tensor cores (``mma.sync``).
+* ``"rows"``: everything else the wrapper takes (float32 qkv, n up to 256,
+  any hd that is a multiple of 8 up to 64, unaligned views). One block per
+  (batch, window, head), one query row per warp at a time, all f32 FMAs.
+
+Both read q, k and v through strides from the packed (B, nW, n, 3, H, hd)
+projection and write a (B, nW, n, H, hd) buffer. The public functions
+return it as a (B, H, nW, n, hd) view, the JAX layout, so the caller can
+read the buffer as (B*nW, n, C) with no copy.
 
 A wrapper launches the kernel for a CUDA tensor and raises if the launch
 fails; it takes the plain version only for a CPU tensor. ``launches`` counts
@@ -40,6 +56,28 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 QK_PRECISIONS = ("default", "bf16", "highest")
 MAX_TOKENS = 256  # window 16
 MAX_HEAD_DIM = 64
+MMA_MAX_TOKENS = 64  # window 8: the logits of a head fit a warp's registers
+MMA_HEAD_DIMS = (16, 32, 64)
+_VARIANT_CODES = {"rows": 0, "mma": 1}
+
+
+def kernel_variant(dtype: torch.dtype, n: int, head_dim: int, *, aligned: bool = True) -> str:
+    """Which kernel of ``csrc/window_cosine_attention.cu`` a CUDA call runs.
+
+    ``"mma"`` (a warp a head, logits in registers, P V on the tensor cores)
+    takes bfloat16 qkv with head_dim 16 or 32 and n <= 64 tokens, or
+    head_dim 64 and n <= 56 (what a block's shared memory holds), and qkv
+    whose address is a multiple of 16 bytes and whose strides are multiples
+    of 8 elements (``aligned``); ``"rows"`` takes the rest.
+    """
+    if dtype != torch.bfloat16 or head_dim not in MMA_HEAD_DIMS or not aligned:
+        return "rows"
+    return "mma" if n <= (56 if head_dim == 64 else MMA_MAX_TOKENS) else "rows"
+
+
+def aligned_for_mma(qkv: torch.Tensor) -> bool:
+    """Whether a qkv tensor meets the ``"mma"`` kernel's 16-byte loads."""
+    return qkv.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in qkv.stride()[:-1])
 
 
 def _check_precision(qk_precision: str) -> None:
@@ -109,7 +147,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 9
             + [ctypes.c_void_p]
         )
@@ -148,12 +186,14 @@ def _launch(qkv: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     scale32 = scale.float().contiguous()
     bias32 = bias.float().contiguous()
     mask32 = mask.float().contiguous() if mask is not None else None
+    variant = kernel_variant(qkv.dtype, n, hd, aligned=aligned_for_mma(qkv))
     lib = _library()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = lib.window_cosine_attention_launch(
         qkv.data_ptr(), out.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
         mask32.data_ptr() if mask32 is not None else None,
         b, nw, n, h, hd, _DTYPE_CODES[qkv.dtype], int(qk_precision == "bf16"),
+        _VARIANT_CODES[variant],
         qkv.stride(0), qkv.stride(1), qkv.stride(2), qkv.stride(3), qkv.stride(4),
         out.stride(0), out.stride(1), out.stride(2), out.stride(3),
         stream,

@@ -155,14 +155,12 @@ def test_host_route_below_the_crossover_equals_jax(monkeypatch):
 
 
 def test_both_packages_load_their_own_native_scan(native_built):
-    from kobato_eyes_tpu.native.build import load_extension_module as jload
-
     tmod = native_built["hamming_scan"]
-    jmod = jload("hamming_scan")
+    jmod = native_built["jax"]["hamming_scan"]
     assert tmod is not jmod
     assert Path(tmod.__file__).parent == ROOT / "kobato_eyes_tpu_torch" / "native"
     assert Path(jmod.__file__).parent == ROOT / "kobato_eyes_tpu" / "native"
-    tasm, jasm = native_built["assembly"], jload("assembly")
+    tasm, jasm = native_built["assembly"], native_built["jax"]["assembly"]
     assert tasm is not jasm and Path(tasm.__file__) != Path(jasm.__file__)
     ph = _population(7, 500)
     got = tham._native_band_scan(ph, band_bits=16, band_count=4, hamming_threshold=8,

@@ -116,3 +116,97 @@ def test_rejects_bad_inputs():
     # the kernel's own checks: CUDA tensors only, n and head_dim in range
     with pytest.raises(ValueError, match="CUDA"):
         wa.check_inputs(qkv, scale, bias, mask)
+
+
+@pytest.mark.parametrize(
+    "dtype,n,head_dim,aligned,want",
+    [
+        (torch.bfloat16, 49, 32, True, "mma"),   # every SwinV2-B/448 stage
+        (torch.bfloat16, 64, 16, True, "mma"),
+        (torch.bfloat16, 64, 32, True, "mma"),
+        (torch.bfloat16, 56, 64, True, "mma"),
+        (torch.bfloat16, 64, 64, True, "rows"),  # over a block's shared memory
+        (torch.bfloat16, 196, 32, True, "rows"),
+        (torch.bfloat16, 49, 24, True, "rows"),
+        (torch.bfloat16, 49, 32, False, "rows"),
+        (torch.float32, 49, 32, True, "rows"),   # f32 qkv: P V stays on f32 FMAs
+        (torch.float32, 196, 16, True, "rows"),
+    ],
+)
+def test_kernel_variant(dtype, n, head_dim, aligned, want):
+    assert wa.kernel_variant(dtype, n, head_dim, aligned=aligned) == want
+
+
+def test_cpu_path_never_counts_a_launch():
+    before = wa.launches
+    qkv, scale, bias, mask = _torch(*_inputs((1, 4, 16, 2, 8), masked=True))
+    wa.windowed_cosine_attention_packed(qkv, scale, bias, mask)
+    wa.windowed_cosine_attention_packed(qkv.to(torch.bfloat16), scale, bias, None)
+    assert wa.launches == before == 0
+    sliced = torch.zeros(2, 4, 19, 3, 2, 8, dtype=torch.bfloat16)[:, :, 1:17]
+    assert wa.aligned_for_mma(sliced) and not wa.aligned_for_mma(sliced[..., 1:])
+
+
+def _padded_mma_emulation(qkv, scale, bias, mask, qk_precision):
+    """What the "mma" kernel computes, in plain torch: logits padded to 56
+    rows and 64 keys (padded keys at -inf, so their weights are zero), the
+    weights rounded to bf16, P V with v's padded rows zero, and o / s taken
+    as q = o * (1 / s) plus one correction by the exact remainder."""
+    q, k, v = (x.float() for x in qkv.unbind(dim=3))  # (B, nW, n, H, hd)
+    n = q.shape[2]
+    qn = q * torch.rsqrt(torch.clamp((q * q).sum(-1, keepdim=True), min=1e-12))
+    kn = k * torch.rsqrt(torch.clamp((k * k).sum(-1, keepdim=True), min=1e-12))
+    if qk_precision == "bf16":
+        qn, kn = qn.bfloat16().float(), kn.bfloat16().float()
+    logits = torch.einsum("bwnhd,bwmhd->bwhnm", qn, kn)
+    logits = logits * scale[:, None, None] + bias
+    if mask is not None:
+        logits = logits + mask[:, None]
+    logits = torch.nn.functional.pad(logits, (0, 64 - n), value=-torch.inf)
+    logits = torch.nn.functional.pad(logits, (0, 0, 0, 56 - n))  # rows past n: dropped below
+    w = torch.exp(logits - logits.amax(dim=-1, keepdim=True)).bfloat16().float()
+    s = w.sum(dim=-1, keepdim=True)
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 64 - n))  # (B, nW, 64, H, hd)
+    o = torch.einsum("bwhnm,bwmhd->bwhnd", w, vp)
+    inv = 1.0 / s
+    q0 = o * inv
+    rem = o.double() - s.double() * q0.double()  # exact, as the fused multiply-add has it
+    out = (rem * inv.double() + q0.double()).float()
+    return out[:, :, :, :n].to(qkv.dtype).permute(0, 2, 1, 3, 4)  # (B, H, nW, n, hd)
+
+
+@pytest.mark.parametrize("qk_precision", ["default", "bf16"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_padded_algorithm_reaches_the_card_checks_tolerance(masked, qk_precision):
+    """n = 49 padded to 56 rows and 64 keys, bf16 qkv: the card check's 3e-2
+    is a tolerance the padded algorithm keeps (it is exact but for the order
+    of the f32 sums and the last bit of the division)."""
+    qkv, scale, bias, mask = _torch(*_inputs((2, 4, 49, 4, 32), masked, seed=5))
+    qkv = qkv.to(torch.bfloat16)
+    got = _padded_mma_emulation(qkv, scale, bias, mask, qk_precision)
+    want = wa.windowed_cosine_attention_packed_plain(qkv, scale, bias, mask, qk_precision=qk_precision)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= 3e-2
+
+
+@pytest.mark.parametrize(
+    "dims,dtype,qk_precision,tol",
+    [
+        ((2, 4, 64, 6, 16), "f32", "default", 5e-5),
+        ((1, 1, 16, 4, 32), "f32", "default", 5e-5),
+        ((2, 4, 49, 4, 64), "f32", "bf16", 1e-3),
+        ((2, 4, 64, 3, 32), "bf16", "default", 3e-2),
+        ((2, 16, 49, 4, 32), "bf16", "bf16", 3e-2),
+    ],
+    ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else str(x),
+)
+def test_card_check_shapes_match_jax_kernel(dims, dtype, qk_precision, tol):
+    """The shapes the card check adds for the tensor-core kernel (window 8,
+    head widths 16 and 64, one window, bf16 operands on bf16 qkv)."""
+    qkv, scale, bias, mask = _inputs(dims, masked=True, seed=6)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    want = np.asarray(
+        jax_packed(jnp.asarray(qkv, jdt), *_jax(scale, bias, mask), qk_precision=qk_precision), np.float32)
+    got = wa.windowed_cosine_attention_packed(
+        torch.from_numpy(qkv).to(tdt), *_torch(scale, bias, mask), qk_precision=qk_precision)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol)

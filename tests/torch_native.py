@@ -1,24 +1,49 @@
 """Shared fixture of the port's tests: the host C++ modules, built once.
 
-Import ``native_built`` into a test module to build and load the port's
-``_hamming_scan`` and ``_assembly`` extensions before its tests run.
+Import ``native_built`` into a test module to build and load the
+``_hamming_scan`` and ``_assembly`` extensions of the port and of the JAX
+package before its tests run.
 """
 
 from __future__ import annotations
 
 import fcntl
+import time
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).parent.parent
+MODULES = ("hamming_scan", "assembly")
+JAX_LOAD_TIMEOUT_S = 120.0
+
+
+def _load_jax_module(name: str):
+    """The JAX package's extension, through its own loader. That loader builds
+    to one fixed temporary name with no lock between processes, and its own
+    tests in other workers build without this fixture's lock: a load that
+    meets a half-written or just-renamed file is tried again until the other
+    build has finished. A compiler's own error is raised at once: only a
+    failed g++ whose message names the shared temporary file (another build
+    renamed it away first) belongs to the race."""
+    from kobato_eyes_tpu.native.build import NativeBuildError, load_extension_module
+
+    deadline = time.monotonic() + JAX_LOAD_TIMEOUT_S
+    while True:
+        try:
+            return load_extension_module(name)
+        except (ImportError, FileNotFoundError, NativeBuildError) as exc:
+            raced = not isinstance(exc, NativeBuildError) or f"_{name}.tmp.so" in str(exc)
+            if not raced or time.monotonic() >= deadline:
+                raise
+            time.sleep(0.5)
 
 
 @pytest.fixture(scope="module", autouse=True)
 def native_built():
-    """Build the port's host C++ modules once, under a lock: test files in
-    other worker processes build the same ``_*.so`` files. Returns the
-    loaded modules by name."""
+    """Build both packages' host C++ modules once, under a lock: test files
+    in other worker processes build the same ``_*.so`` files. Returns the
+    port's loaded modules by name, and the JAX package's under ``"jax"``."""
     from kobato_eyes_tpu_torch.native.build import load_extension_module
 
     lock = ROOT / "build" / "native_build.lock"
@@ -26,6 +51,8 @@ def native_built():
     with lock.open("w") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         try:
-            return {name: load_extension_module(name) for name in ("hamming_scan", "assembly")}
+            built = {name: load_extension_module(name) for name in MODULES}
+            built["jax"] = {name: _load_jax_module(name) for name in MODULES}
+            return built
         finally:
             fcntl.flock(fh, fcntl.LOCK_UN)
