@@ -25,7 +25,16 @@ batch 32, random seeded weights):
   host scan, and ``audit_clusters`` over the 70k clusters with the
   all-pairs Hamming kernel; then ``index`` (fused signatures), ``dup
   --sweep --audit`` and ``dup --refine`` through the CLI over 48 seeded
-  images with re-encodes and resizes.
+  images with re-encodes and resizes;
+* query: on the ViT run's catalog, ``search`` with the default (device)
+  backend through the CLI against ``--backend sql`` line for line, a
+  three-query batch and the snapshot's reuse; a ViT index run with an
+  ``EpochManager`` (a full epoch build, then a delta on a second run); a
+  seeded 20 000-file catalog on which every query of a list equals the SQL
+  backend in ids and relevance, the batch equals the singles and
+  ``update_epoch`` equals a fresh ``build_epoch``; and 1 000 000 files with
+  ~31 M postings through ``_assemble_epoch``, masks against a plain numpy
+  evaluation, build wall, device memory and query latencies.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 and read just after. It checks each tagger's fast forward against its exact
@@ -107,6 +116,36 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_graph_ms(fns, replays: int = 5) -> float:
+    """Mean device time of one call, with the calls of ``fns`` captured into
+    one CUDA graph and replayed: the host's time to enqueue a call (tens of
+    microseconds through a Python wrapper) is out of the reading, which
+    ``cuda_ms`` cannot keep out for a kernel shorter than that."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:  # warm up (and build) outside the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * len(fns))
 
 
 # ---------------------------------------------------------------------------
@@ -406,6 +445,11 @@ def window_attention_phase() -> dict:
 
 
 def layernorm_residual_phase() -> dict:
+    """Kernel 4 at all four SwinV2-B/448 stage shapes (bf16 and f32) through
+    the ``"vec8"`` kernel, the ``"scalar"`` kernel on what ``"vec8"`` does not
+    take (C = 100, a view 8 bytes off a 16-byte boundary) and forced on the
+    stage shapes; then each stage shape timed: both kernels, the plain
+    version, ``x + F.layer_norm`` and the byte bound."""
     import numpy as np
     import torch
 
@@ -422,8 +466,10 @@ def layernorm_residual_phase() -> dict:
         return (t(rng.normal(size=(rows, c)) * 3, dtype), t(rng.normal(size=(rows, c)), dtype),
                 t(rng.uniform(0.5, 2.0, c), torch.float32), t(rng.normal(size=c), torch.float32))
 
-    def compare(name, x, res, gamma, beta):
-        got = lnr.layernorm_residual(x, res, gamma, beta)
+    def compare(name, x, res, gamma, beta, expect, variant=None):
+        ran = variant or lnr.kernel_variant(x.shape[-1], aligned=lnr.aligned_for_vec(x, res, gamma, beta))
+        check(ran == expect, f"ln {name}: runs {ran}, expected {expect}")
+        got = lnr.layernorm_residual(x, res, gamma, beta, variant=variant)
         want = lnr.layernorm_residual_plain(x, res, gamma, beta)
         torch.cuda.synchronize()
         check(got.dtype == x.dtype and got.shape == x.shape, f"ln {name}: dtype/shape")
@@ -438,39 +484,89 @@ def layernorm_residual_phase() -> dict:
         else:
             ok = err <= 2e-4  # the JAX package's tolerance
             tol = "2e-4"
-        print(f"layernorm_residual {name}: max_abs_err={err:.3e} (tol {tol})")
+        print(f"layernorm_residual {name} [{ran}]: max_abs_err={err:.3e} (tol {tol})")
         check(ok, f"ln {name}: max_abs_err {err} over {tol}")
         return err
 
     errs = []
-    main = {}
-    for rows, c in ((401408, 128), (6272, 1024)):
+    main = []
+    for stage, (nw, _) in enumerate(SWIN_B448_STAGES):
+        rows, c = BATCH * nw * SWIN_WINDOW**2, 128 << stage
         for dtype in (torch.bfloat16, torch.float32):
             ins = inputs(rows, c, dtype, seed=c)
-            err = compare(f"({rows}, {c}) {str(dtype).split('.')[-1]}", *ins)
+            name = f"stage {stage} ({rows}, {c}) {str(dtype).split('.')[-1]}"
+            err = compare(name, *ins, expect="vec8")
+            compare(name, *ins, expect="scalar", variant="scalar")
             if dtype == torch.bfloat16:
                 errs.append(err)
-                main[c] = ins
-    compare("(4096, 100) f32", *inputs(4096, 100, torch.float32, 3))
-    compare("(4096, 100) bf16", *inputs(4096, 100, torch.bfloat16, 4))
+                main.append(ins)
+    # what "vec8" does not take, by shape: C not a multiple of 8, C = 8 * odd
+    # (taken, a ragged last lane), rows that leave a ragged last warp, and a
+    # contiguous view that starts 8 bytes off a 16-byte boundary
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        compare(f"(4096, 100) {dt}", *inputs(4096, 100, dtype, 3), expect="scalar")
+        compare(f"(4099, 104) {dt}", *inputs(4099, 104, dtype, 4), expect="vec8")
+        compare(f"(37, 128) {dt}", *inputs(37, 128, dtype, 5), expect="vec8")
+        compare(f"(301, 640) {dt}", *inputs(301, 640, dtype, 6), expect="vec8")
+        compare(f"(5, 8) {dt}", *inputs(5, 8, dtype, 7), expect="vec8")
+        x, res, gamma, beta = inputs(1025, 256, dtype, 8)
+        off = 8 // x.element_size()
+        x_off = torch.cat([x.new_zeros(off), x.reshape(-1)])[off:].view(1025, 256)
+        check(x_off.data_ptr() % 16 == 8 and x_off.is_contiguous(), "misaligned view")
+        compare(f"(1025, 256) {dt} misaligned view", x_off, res, gamma, beta, expect="scalar")
+    try:
+        lnr.layernorm_residual(*inputs(8, 100, torch.float32, 9), variant="vec8")
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("ln: variant='vec8' on C = 100 did not raise")
 
+    # Times. A call's device time is 11 to 110 microseconds, less than the
+    # host takes to enqueue it, so the calls are captured into a CUDA graph.
+    # "cold": 24 calls walk over copies of x and the shortcut that together
+    # exceed the 50 MB L2 several times, as the byte bound assumes; "warm":
+    # the same tensors every call (stages 2 and 3 then fit in the L2).
     rows_out = []
-    for c in (128, 1024):
-        x, res, gamma, beta = main[c]
-        ms = cuda_ms(lambda: lnr.layernorm_residual(x, res, gamma, beta), iters=20)
-        plain_ms = cuda_ms(lambda: lnr.layernorm_residual_plain(x, res, gamma, beta), iters=5)
-        g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
-        # yardstick: two calls, F.layer_norm then the residual add
-        library_ms = cuda_ms(
-            lambda: res + torch.nn.functional.layer_norm(x, (x.shape[-1],), g16, b16, 1e-5), iters=20
-        )
+    for stage, (x, res, gamma, beta) in enumerate(main):
+        c = x.shape[-1]
         bytes_moved = 3 * x.numel() * x.element_size() + 2 * gamma.numel() * 4
+        copies = min(24, -(-400_000_000 // bytes_moved))
+        sets = [(x, res)] + [(x.clone(), res.clone()) for _ in range(copies - 1)]
+        g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
+
+        def calls(fn, n=24):
+            return [lambda a=a, r=r: fn(a, r) for a, r in (sets[i % len(sets)] for i in range(n))]
+
+        def vec8(a, r):
+            return lnr.layernorm_residual(a, r, gamma, beta)
+
+        def scalar(a, r):
+            return lnr.layernorm_residual(a, r, gamma, beta, variant="scalar")
+
+        def library(a, r):  # yardstick: two calls, F.layer_norm then the residual add
+            return r + torch.nn.functional.layer_norm(a, (c,), g16, b16, 1e-5)
+
+        ms = cuda_graph_ms(calls(vec8))
+        scalar_ms = cuda_graph_ms(calls(scalar))
+        library_ms = cuda_graph_ms(calls(library))
+        ms2 = cuda_graph_ms(calls(vec8))
+        warm = [cuda_graph_ms([lambda: fn(x, res)] * 24) for fn in (vec8, scalar, library)]
+        eager = [cuda_ms(lambda: fn(x, res), iters=50, warmup=5) for fn in (vec8, scalar, library)]
+        plain_ms = cuda_ms(lambda: lnr.layernorm_residual_plain(x, res, gamma, beta), iters=5)
+        del sets
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = 8.0 * x.numel() / BF16_FLOPS_PER_S * 1e3
+        t_ops = 8.0 * x.numel() / F32_FLOPS_PER_S * 1e3  # f32 arithmetic outside the tensor cores
+        bound = max(t_ops, t_bytes)
         print(
-            f"layernorm_residual ({x.shape[0]}, {c}) bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"layer_norm + add (two calls) {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-            f"({bytes_moved / 1e6:.1f} MB, {'bytes' if t_bytes >= t_ops else 'operations'})"
+            f"layernorm_residual stage {stage} ({x.shape[0]}, {c}) bf16, cold over {copies} input sets: "
+            f"kernel [vec8] {ms:.4f} ms (again {ms2:.4f}; {ms / bound:.2f}x the bound, "
+            f"{bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s), [scalar] {scalar_ms:.4f} ms, "
+            f"layer_norm + add (two calls) {library_ms:.4f} ms; bound {bound:.4f} ms "
+            f"({bytes_moved / 1e6:.1f} MB, {'bytes' if t_bytes >= t_ops else 'operations'}); "
+            f"warm (one input set) vec8 / scalar / layer_norm + add {warm[0]:.4f} / {warm[1]:.4f} / {warm[2]:.4f} ms; "
+            f"enqueued call by call (host included) {eager[0]:.4f} / {eager[1]:.4f} / {eager[2]:.4f} ms; "
+            f"plain {plain_ms:.4f} ms; {2 * SWIN_B448_DEPTHS[stage]} launches a residual-LN forward"
         )
         rows_out.append((ms, plain_ms, library_ms, t_ops, t_bytes))
     ms, plain_ms, library_ms, t_ops, t_bytes = rows_out[0]  # stage 0 is the reported shape
@@ -900,6 +996,525 @@ def dup_cli_phase(work: Path) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Query path: the device tag-query engine
+# ---------------------------------------------------------------------------
+
+CATEGORY_NAMES = ("general", "artist", "rating", "copyright", "character", "meta")
+CASED_CATEGORIES = (0, 3, 4)  # general, copyright, character: the SQL threshold CASE
+# Thresholds that f32 holds exactly (the fallbacks for character and
+# copyright, 0.25, are such too; the general fallback 0.35 is not and is
+# overridden): the SQL backend compares f64 scores with the f64 threshold,
+# the engine f32 with f32, and the two part on a score equal to an inexact
+# threshold's f32 rounding. Score terms in the queries are dyadic as well.
+THRESHOLD_SETS = ({0: 0.375}, {0: 0.5, 4: 0.25}, {3: 0.75, 1: 0.5, 5: 0.125, 0: 0.25})
+ORDERINGS = ("relevance", "mtime", "path", "id")
+
+
+def _canonical_postings(epoch):
+    """(tag, row)-ordered rows and scores of an epoch's host CSR. A delta
+    keeps a tag's surviving postings and appends its fresh ones, a full
+    build has them in catalog order: as sets per tag they must be equal."""
+    import numpy as np
+
+    tags = np.repeat(np.arange(epoch.num_tags), np.diff(epoch.offsets))
+    order = np.lexsort((epoch.rows_np, tags))
+    return order, epoch.rows_np[order], epoch.scores_np[order]
+
+
+def check_epochs_equal(got, want, what: str) -> None:
+    """Every array of two epochs, host and device; postings as sets per tag."""
+    import numpy as np
+    import torch
+
+    check((got.num_files, got.num_tags, got.nnz, got.n_pad, got.t_pad)
+          == (want.num_files, want.num_tags, want.nnz, want.n_pad, want.t_pad), f"{what}: sizes differ")
+    check(got.paths == want.paths and got.tag_names == want.tag_names, f"{what}: paths or tag names differ")
+    for name in ("file_ids", "mtimes", "sizes", "tag_cats", "offsets"):
+        check(np.array_equal(getattr(got, name), getattr(want, name)), f"{what}: {name} differs")
+    for name in ("cat_max_dev", "cat_present_dev", "smax_dev", "smin_dev"):
+        check(torch.equal(getattr(got, name), getattr(want, name)), f"{what}: {name} differs")
+    (go, gr, gs), (wo, wr, ws) = _canonical_postings(got), _canonical_postings(want)
+    check(np.array_equal(gr, wr) and np.array_equal(gs, ws), f"{what}: host postings differ")
+    nnz = got.nnz
+    for name in ("rows_dev", "scores_dev"):
+        g, w = getattr(got, name).cpu().numpy(), getattr(want, name).cpu().numpy()
+        check(np.array_equal(g[:nnz][go], w[:nnz][wo]) and np.array_equal(g[nnz:], w[nnz:]),
+              f"{what}: {name} differs")
+
+
+def _sql_rows(conn, query, thr, order_by, limit, offset):
+    from kobato_eyes_tpu_torch.db.repository import search_files
+    from kobato_eyes_tpu_torch.query.ast import extract_positive_tag_terms
+    from kobato_eyes_tpu_torch.query.sql import normalize_thresholds, translate_query
+
+    frag = translate_query(query, thresholds=thr)
+    return search_files(conn, frag.where, frag.params, positive_tags=extract_positive_tag_terms(query),
+                        thresholds=normalize_thresholds(thr), order_by=order_by, limit=limit, offset=offset,
+                        hydrate=False)
+
+
+def check_rows_equal_sql(rows, sql, what: str, relevance: bool) -> None:
+    check([r.file_id for r in rows] == [r.file_id for r in sql], f"{what}: ids differ from the SQL backend's")
+    if relevance:
+        # f64 sums of the same f64 scores; SQLite adds in row order, the
+        # engine in term order: 1e-9 covers the last bits
+        check(all(abs(a.relevance - b.relevance) <= 1e-9 for a, b in zip(rows, sql)),
+              f"{what}: relevance differs from the SQL backend's")
+
+
+def _search_lines(out: str) -> list[tuple[str, str]]:
+    return [tuple(line.split(None, 1)) for line in out.splitlines() if line.strip() and not line.startswith("#")]
+
+
+def query_cli_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> None:
+    """On the ViT run's catalog: ``search`` with the default (device) backend
+    through the CLI against ``--backend sql``, a three-query batch, a second
+    call that loads the snapshot; then the ViT index run with an
+    ``EpochManager`` (a full build), and a second run over the library with
+    files rewritten, removed and added (a delta)."""
+    import numpy as np
+    from PIL import Image
+
+    from kobato_eyes_tpu_torch.core.config.service import load_settings
+    from kobato_eyes_tpu_torch.core.pipeline import run_index_once
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
+    from kobato_eyes_tpu_torch.query import engine
+    from kobato_eyes_tpu_torch.utils.paths import get_app_paths
+
+    data = work / "data"
+    base = ["--config", str(cfg), "--data-dir", str(data)]  # no --device: the default is the card
+    conn = bootstrap(data / "db" / "catalog.sqlite3")
+    try:
+        names = [r[0] for r in conn.execute(
+            "SELECT t.name FROM file_tags ft JOIN tags t ON t.id = ft.tag_id WHERE t.category = 0 "
+            "GROUP BY t.id ORDER BY COUNT(*) DESC, t.name LIMIT 6")]
+        route = "native (C sqlite3 walk)" if engine._fetch_file_tag_arrays_native(conn) is not None else "python"
+    finally:
+        conn.close()
+    check(len(names) == 6, "the ViT index run wrote fewer than 6 general tags")
+    print(f"query cli: catalog fetch route: {route}")
+
+    builds = []
+    real_build = engine.build_epoch
+
+    def counting_build(*args, **kwargs):
+        builds.append(str(kwargs.get("device")))
+        return real_build(*args, **kwargs)
+
+    engine.build_epoch = counting_build
+    try:
+        snap = get_app_paths(data).index_dir / "epoch.npz"
+        check(not snap.exists(), "an epoch snapshot exists before the first device search")
+        queries = [names[0], f"{names[0]} {names[1]} -{names[2]}", f"( {names[3]} OR {names[4]} ) category:character",
+                   f"{names[5]} score>=0.875"]
+        for i, query in enumerate(queries):
+            t0 = time.perf_counter()
+            device = _search_lines(run_cli(base + ["search", query]))
+            wall = time.perf_counter() - t0
+            sql = _search_lines(run_cli(base + ["search", "--backend", "sql", query]))
+            check(device == sql, f"search {query!r}: device backend != sql backend, line for line")
+            print(f"query cli: search {query!r}: {len(device)} lines equal to --backend sql "
+                  f"({'built and saved the snapshot' if i == 0 else 'loaded the snapshot'}, {wall * 1e3:.1f} ms)")
+        check(len(_search_lines(run_cli(base + ["search", queries[0]]))) > 0, "device search returned nothing")
+        check(builds == [DEVICE], f"epoch builds over five device searches: {builds} (one expected, then the snapshot)")
+        check(snap.exists() and snap.with_suffix(".json").exists(), "no epoch snapshot after a device search")
+        out = run_cli(base + ["search", "--limit", "20", *queries[:3]])
+        groups = out.split("# query: ")[1:]
+        check(len(groups) == 3, "three-query batch: three sections expected")
+        for query, group in zip(queries[:3], groups):
+            single = _search_lines(run_cli(base + ["search", "--limit", "20", query]))
+            check(_search_lines(group.split("\n", 1)[1]) == single, f"batch section {query!r} != its single search")
+        print(f"query cli: three-query batch equals the singles; epoch builds in all: {len(builds)}")
+    finally:
+        engine.build_epoch = real_build
+
+    # the ViT index run with an epoch manager: full build, then a delta
+    lib2 = work / "library_epoch"
+    shutil.copytree(lib, lib2)
+    settings = load_settings(cfg)
+    settings.pipeline.roots = [lib2]
+    tagger = WD14Tagger(labels_path=labels, device=DEVICE)
+    manager = engine.EpochManager()
+    check(manager.device.type == DEVICE, "EpochManager() did not default to the card")
+    db = work / "data_epoch" / "db" / "catalog.sqlite3"
+    db.parent.mkdir(parents=True)
+    stats = run_index_once(db, settings, tagger, epoch_manager=manager)
+    first = manager.current
+    print(f"query cli: vit-b448 index with an EpochManager: tagged={stats.tagged} epoch_version={stats.epoch_version} "
+          f"stage_walls={json.dumps(stats.extra['stage_walls'])} files={first.num_files} tags={first.num_tags} "
+          f"nnz={first.nnz} on {first.device}")
+    check(stats.epoch_version == 1 and stats.tagged == N_IMAGES and stats.tag_failed == 0, "first epoch run")
+    check("epoch" in stats.extra["stage_walls"] and first.device.type == DEVICE, "epoch stage wall / device")
+    files = sorted(lib2.iterdir())
+    rng = np.random.default_rng(5)
+    for path in files[:3]:  # rewritten: retagged in place
+        Image.fromarray(rng.integers(0, 256, size=(200, 240, 3), dtype=np.uint8)).save(path)
+    files[3].unlink()
+    files[4].unlink()
+    Image.fromarray(rng.integers(0, 256, size=(300, 200, 3), dtype=np.uint8)).save(lib2 / "zz_added.png")
+    stats = run_index_once(db, settings, tagger, epoch_manager=manager)
+    second = manager.current
+    print(f"query cli: second run: tagged={stats.tagged} missing={stats.missing} epoch_version={stats.epoch_version} "
+          f"stage_walls={json.dumps(stats.extra['stage_walls'])} files={second.num_files} nnz={second.nnz}")
+    check(stats.epoch_version == 2 and stats.tagged == 4 and stats.missing == 2, "second epoch run")
+    check(second.num_files == N_IMAGES - 1 and first.version == 1 and first.num_files == N_IMAGES,
+          "delta epoch file axis / the first epoch was written")
+    conn = bootstrap(db)
+    try:
+        check_epochs_equal(second, engine.build_epoch(conn, version=2), "delta after the second index run")
+        for query in ("", names[0], f"-{names[0]}", "category:character score>=0.5"):
+            rows = engine.search_epoch(second, query, limit=1000)
+            check_rows_equal_sql(rows, _sql_rows(conn, query, {}, "relevance", 1000, 0), f"delta epoch {query!r}", True)
+    finally:
+        conn.close()
+    print("query cli: the delta epoch equals a fresh build and the SQL backend")
+    del tagger
+
+
+def _write_query_catalog(db: Path, n_files: int, n_tags: int, seed: int):
+    """A seeded catalog written in bulk: ``n_files`` files with ~30 distinct
+    tags each from a Zipf-like vocabulary over all six categories, f32 scores
+    (a tenth of them exactly 0.5), mtimes with ties. Returns the connection."""
+    import numpy as np
+
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+
+    rng = np.random.default_rng(seed)
+    db.parent.mkdir(parents=True, exist_ok=True)
+    conn = bootstrap(db)
+    p = 1.0 / (np.arange(n_tags) + 8.0)
+    draws = rng.choice(n_tags, size=(n_files, 36), p=p / p.sum())
+    keys = np.unique(np.arange(n_files, dtype=np.int64)[:, None] * n_tags + draws)
+    fid, tid = keys // n_tags + 1, keys % n_tags + 1
+    scores = rng.uniform(0.05, 1.0, len(keys)).astype(np.float32)
+    scores[rng.random(len(keys)) < 0.1] = 0.5
+    cats = np.asarray((0, 0, 0, 0, 4, 3, 1, 2, 5, 0))[np.arange(n_tags) % 10]
+    with conn:
+        conn.executemany("INSERT INTO files (id, path, size, mtime, is_present) VALUES (?, ?, ?, ?, 1)",
+                         [(i + 1, f"/lib/{i % 97:02d}/img_{i:06d}.png", 1000 + i % 5000, 1e9 + (i % 1013) * 60.0)
+                          for i in range(n_files)])
+        conn.executemany("INSERT INTO tags (id, name, category) VALUES (?, ?, ?)",
+                         [(t + 1, f"tag_{t:04d}", int(cats[t])) for t in range(n_tags)])
+        conn.executemany("INSERT INTO file_tags (file_id, tag_id, score) VALUES (?, ?, ?)",
+                         zip(fid.tolist(), tid.tolist(), scores.astype(np.float64).tolist()))
+    return conn, len(keys)
+
+
+def _parity_queries() -> list[str]:
+    a, b, c, d, e, f = (f"tag_{t:04d}" for t in (0, 1, 2, 4, 5, 40))
+    rare, mid = "tag_1900", "tag_0300"
+    queries = [
+        "", a, f"{a} {b}", f"{a} AND {b}", f"{a} OR {b}", f"{a} -{b}", f"NOT {a}", f"-{a} -{b}",
+        f"( {a} OR {b} ) {c}", f"{a} AND ( {d} OR {e} )", f"-( {a} {b} )", f"( {a} OR {rare} ) -( {b} OR {mid} )",
+        f"{d} {e}", f"{d} OR {e} OR {f}", f"{rare} OR {mid}", f"{mid} -{a}", f"NOT ( {a} OR {b} OR {c} )",
+        "unknown_tag", f"{a} OR unknown_tag", f"{a} unknown_tag", "-unknown_tag",
+        f"{a} score>=0.75", f"{a} score>0.5", f"{b} score<=0.125", f"{c} score<0.25", "score=0.5", f"{a} -score=0.5",
+        "score>=0.96875", "score<0.0625", f"NOT score>0.5 {a}",
+    ]
+    queries += [f"category:{name}" for name in CATEGORY_NAMES]
+    queries += [f"category:{name} {a}" for name in ("character", "copyright", "meta")]
+    queries += ["category:character score>=0.5", "-category:artist", "category:rating OR category:meta",
+                f"( category:character OR {rare} ) -{a}", f"category:general -category:character {b}"]
+    return queries
+
+
+def query_parity_phase(work: Path) -> None:
+    """A seeded catalog of 20 000 files x ~30 tags (2 000-tag vocabulary, six
+    categories): every query of the list through ``search_epoch`` on the card
+    against the SQL backend (ids and relevance), the batch against the
+    singles, the mask evaluation under the sync debug mode, then a delta
+    (500 retagged, 100 removed, 100 added) against a fresh build."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.db.repository import TaggingItem, delete_files, mark_files_absent, upsert_file
+    from kobato_eyes_tpu_torch.db.repository import write_tagging_batch
+    from kobato_eyes_tpu_torch.query import engine
+    from kobato_eyes_tpu_torch.query.ast import parse_query
+    from kobato_eyes_tpu_torch.query.sql import normalize_thresholds
+    from kobato_eyes_tpu_torch.utils.metrics import metrics
+
+    n_files, n_tags = 20_000, 2_000
+    t0 = time.perf_counter()
+    conn, nnz = _write_query_catalog(work / "parity" / "catalog.sqlite3", n_files, n_tags, seed=11)
+    t_write = time.perf_counter() - t0
+    try:
+        metrics.reset()
+        t0 = time.perf_counter()
+        epoch = engine.build_epoch(conn, version=1)
+        t_build = time.perf_counter() - t0
+        timers = metrics.snapshot()["timers"]
+        print(f"query parity: catalog {n_files} files x {n_tags} tags, {nnz} postings written in {t_write:.1f} s; "
+              f"build_epoch {t_build * 1e3:.0f} ms (sort {timers['epoch.sort']['total'] * 1e3:.0f} ms, "
+              f"upload {timers['epoch.upload']['total'] * 1e3:.1f} ms) on {epoch.device}, n_pad={epoch.n_pad}")
+        check(epoch.device.type == DEVICE and epoch.num_files == n_files and epoch.nnz == nnz, "parity epoch")
+
+        queries = _parity_queries()
+        check(len(queries) >= 40, f"{len(queries)} parity queries")
+        hits = 0
+        for i, query in enumerate(queries):
+            thr = THRESHOLD_SETS[i % 3]
+            order_by = ORDERINGS[i % 4]
+            limit, offset = ((1000, 0), (50, 7), (200, 0))[i % 3]
+            rows = engine.search_epoch(epoch, query, thresholds=thr, order_by=order_by, limit=limit, offset=offset)
+            sql = _sql_rows(conn, query, thr, order_by, limit, offset)
+            check_rows_equal_sql(rows, sql, f"parity {query!r} {thr} {order_by}", order_by == "relevance")
+            hits += len(rows)
+        # every ordering on one query with a large hit set, relevance ties included
+        for order_by in ORDERINGS:
+            rows = engine.search_epoch(epoch, "tag_0000 OR tag_0001", thresholds=THRESHOLD_SETS[1],
+                                       order_by=order_by, limit=300, offset=20)
+            check_rows_equal_sql(rows, _sql_rows(conn, "tag_0000 OR tag_0001", THRESHOLD_SETS[1], order_by, 300, 20),
+                                 f"parity ordering {order_by}", order_by == "relevance")
+        print(f"query parity: {len(queries)} queries (AND / OR / NOT / parentheses / category: / score ops / unknown tag; "
+              f"3 threshold sets, 4 orderings, offsets) equal the SQL backend in ids and relevance; {hits} rows")
+
+        for order_by, thr in (("relevance", THRESHOLD_SETS[1]), ("path", {})):
+            kw = dict(thresholds=thr, order_by=order_by, limit=100, offset=3)
+            batch = engine.search_epoch_batch(epoch, queries, **kw)
+            singles = [engine.search_epoch(epoch, q, **kw) for q in queries]
+            check(batch == singles, f"search_epoch_batch != the singles ({order_by})")
+        print(f"query parity: search_epoch_batch of {len(queries)} equals the singles")
+
+        # no step of the mask evaluation may read a device value on the host
+        thr = normalize_thresholds(THRESHOLD_SETS[1])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            words = [engine._mask_words(epoch, engine._slot_tables_np(epoch, parse_query(q), thr)) for q in queries]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(all(w.dtype == torch.uint8 and w.shape == (epoch.n_pad // 8,) for w in words), "packed words")
+        print(f"query parity: {len(words)} masks evaluated under set_sync_debug_mode('error'): no sync")
+
+        # delta: 500 retagged in place (new tags among them), 100 removed, 100 added
+        rng = np.random.default_rng(12)
+        ids = rng.permutation(n_files)[:600] + 1
+        retag, gone = ids[:500].tolist(), ids[500:].tolist()
+        items = []
+        for k, fid in enumerate(retag):
+            picks = rng.choice(n_tags, size=12, replace=False)
+            tags = [(f"tag_{t:04d}", float(np.float32(rng.uniform(0.05, 1.0))), int((0, 0, 0, 0, 4, 3, 1, 2, 5, 0)[t % 10]))
+                    for t in picks]
+            if k % 50 == 0:
+                tags.append((f"fresh_tag_{k}", 0.75, 0))
+            items.append(TaggingItem(file_id=fid, tags=tags, tagger_sig="s2"))
+        write_tagging_batch(conn, items)
+        mark_files_absent(conn, gone[:50])
+        delete_files(conn, gone[50:])
+        added = [upsert_file(conn, path=f"/lib/new/img_{i:04d}.png", size=77 + i, mtime=2e9 + i) for i in range(100)]
+        write_tagging_batch(conn, [TaggingItem(file_id=f, tags=[("tag_0000", 0.5, 0), ("tag_0004", 0.875, 4),
+                                                                 ("fresh_tag_0", 0.25, 0)]) for f in added])
+        conn.commit()
+        metrics.reset()
+        t0 = time.perf_counter()
+        delta = engine.update_epoch(conn, epoch, changed_file_ids=retag + gone + added, version=2)
+        t_delta = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh = engine.build_epoch(conn, version=2)
+        t_fresh = time.perf_counter() - t0
+        check_epochs_equal(delta, fresh, "update_epoch after 500 retagged, 100 removed, 100 added")
+        check(delta.num_files == n_files and "fresh_tag_0" in delta.name_to_tid and epoch.num_files == n_files
+              and "fresh_tag_0" not in epoch.name_to_tid, "delta epoch axis / previous epoch untouched")
+        for i, query in enumerate(queries[:20] + ["fresh_tag_0", "fresh_tag_0 OR fresh_tag_50"]):
+            rows = engine.search_epoch(delta, query, thresholds=THRESHOLD_SETS[i % 3], limit=500)
+            check_rows_equal_sql(rows, _sql_rows(conn, query, THRESHOLD_SETS[i % 3], "relevance", 500, 0),
+                                 f"delta {query!r}", True)
+        print(f"query parity: update_epoch (500 retagged, 100 removed, 100 added) in {t_delta * 1e3:.0f} ms equals a "
+              f"fresh build_epoch ({t_fresh * 1e3:.0f} ms) array for array, and the SQL backend on 22 queries")
+    finally:
+        conn.close()
+
+
+SCALE_FILES = 1_000_000
+SCALE_TAGS = 8192
+
+
+def _numpy_mask(expr, csr, thr: dict) -> "np.ndarray":
+    """The query's file mask by plain numpy over the host CSR: the SQL
+    backend's semantics (an EXISTS per term; a tag's score against its
+    category's threshold, f32 against f32 as the engine stores them) written
+    out independently of the engine's panels and packed words."""
+    import numpy as np
+
+    from kobato_eyes_tpu_torch.query import ast
+
+    n, offsets, rows, scores, tag_cats, entry_cats, name_to_tid = csr
+
+    def rows_mask(sel_rows):
+        mask = np.zeros(n, dtype=bool)
+        mask[sel_rows] = True
+        return mask
+
+    def ev(node):
+        if node is None:
+            return np.ones(n, dtype=bool)
+        if isinstance(node, ast.TagExpr):
+            tid = name_to_tid.get(node.name)
+            if tid is None:
+                return np.zeros(n, dtype=bool)
+            cat = int(tag_cats[tid])
+            gate = np.float32(thr.get(cat if cat in CASED_CATEGORIES else -1, 0.0))
+            lo, hi = int(offsets[tid]), int(offsets[tid + 1])
+            return rows_mask(rows[lo:hi][scores[lo:hi] >= gate])
+        if isinstance(node, ast.CategoryExpr):
+            cat = int(node.category)
+            return rows_mask(rows[(entry_cats == cat) & (scores >= np.float32(thr.get(cat, 0.0)))])
+        if isinstance(node, ast.ScoreExpr):
+            t = np.float32(node.threshold)
+            op = {">=": np.greater_equal, ">": np.greater, "<=": np.less_equal, "<": np.less, "=": np.equal}[node.op]
+            return rows_mask(rows[op(scores, t)])
+        if isinstance(node, ast.NotExpr):
+            return ~ev(node.operand)
+        if isinstance(node, ast.AndExpr):
+            return ev(node.left) & ev(node.right)
+        if isinstance(node, ast.OrExpr):
+            return ev(node.left) | ev(node.right)
+        raise SmokeFailure(f"unhandled query node {node!r}")
+
+    return ev(expr)
+
+
+def query_scale_phase() -> None:
+    """The size the engine is written for: 1 000 000 files, 8 192 tags with a
+    Zipf-like frequency, ~30 M postings, drawn from a seed on the card and
+    put through ``_assemble_epoch`` (no SQLite). A dozen queries' masks against
+    a plain numpy evaluation over the host CSR; build wall, device memory,
+    warm single-query latency and a batch of 32 against 32 singles."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.query import engine
+    from kobato_eyes_tpu_torch.query.ast import parse_query
+    from kobato_eyes_tpu_torch.query.sql import normalize_thresholds
+    from kobato_eyes_tpu_torch.utils.metrics import metrics
+
+    n, n_tags = SCALE_FILES, SCALE_TAGS
+    t_phase = time.perf_counter()
+    # the postings are drawn on the card (the host takes a minute for the
+    # same draws): 32 tags a file by inverse CDF, distinct (file, tag) pairs
+    # kept, file-major as a catalog lists them; scores on a 1/512 grid
+    gen = torch.Generator(device=DEVICE).manual_seed(2024)
+    weights = 1.0 / (torch.arange(n_tags, dtype=torch.float64, device=DEVICE) + 24.0)
+    cdf = torch.cumsum(weights / weights.sum(), 0).float()
+    draws = torch.searchsorted(cdf, torch.rand(n * 32, generator=gen, device=DEVICE)).clamp_(max=n_tags - 1)
+    draws += torch.arange(n, device=DEVICE).repeat_interleave(32) * n_tags
+    keys = torch.unique(draws)
+    del draws
+    nnz = int(keys.numel())
+    grid = torch.round((torch.rand(nnz, generator=gen, device=DEVICE) * 0.95 + 0.05) * 512) / 512
+    r_idx = (keys // n_tags).to(torch.int32).cpu().numpy()
+    t_idx = (keys % n_tags).cpu().numpy()
+    sc = grid.double().cpu().numpy()  # f32-exact values as the f64 a catalog returns
+    del keys, grid, cdf, weights
+    torch.cuda.empty_cache()
+    tag_cats = np.asarray((0, 0, 0, 0, 4, 3, 1, 2, 5, 0), dtype=np.int32)[np.arange(n_tags) % 10]
+    tag_names = [f"tag_{t:04d}" for t in range(n_tags)]
+    t_made = time.perf_counter() - t_phase
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    metrics.reset()
+    t0 = time.perf_counter()
+    epoch = engine._assemble_epoch(
+        version=1, file_ids=np.arange(1, n + 1, dtype=np.int64),
+        mtimes=1e9 + (np.arange(n) % 100_003) * 7.0, sizes=np.arange(n, dtype=np.int64) % 9_999_991,
+        paths=[f"/lib/{i % 997:03d}/img_{i:07d}.png" for i in range(n)],
+        tag_names=tag_names, tag_cats=tag_cats, t_idx=t_idx, r_idx=r_idx, sc=sc,
+    )
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    timers = metrics.snapshot()["timers"]
+    resident = torch.cuda.memory_allocated() - before
+    postings_bytes = epoch.rows_dev.numel() * 4 + epoch.scores_dev.numel() * 4
+    panel_bytes = sum(t.numel() * t.element_size() for t in
+                      (epoch.cat_max_dev, epoch.cat_present_dev, epoch.smax_dev, epoch.smin_dev))
+    print(f"query scale: {n} files, {n_tags} tags, {nnz} postings (made in {t_made:.1f} s); _assemble_epoch "
+          f"{t_build:.2f} s (epoch.sort {timers['epoch.sort']['total']:.2f} s, epoch.upload "
+          f"{timers['epoch.upload']['total'] * 1e3:.1f} ms, the rest panels and offsets on the host); on the card "
+          f"{resident / 1e6:.1f} MB (postings {postings_bytes / 1e6:.1f} MB padded to {epoch.rows_dev.numel()}, "
+          f"panels {panel_bytes / 1e6:.1f} MB at n_pad={epoch.n_pad}), peak {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+    check(epoch.device.type == DEVICE and epoch.nnz == nnz and nnz > 20 * n, "scale epoch")
+    del t_idx, r_idx, sc
+
+    # masks against plain numpy over the host CSR
+    scores32 = epoch.scores_np.astype(np.float32)
+    entry_cats = np.repeat(tag_cats, np.diff(epoch.offsets))
+    csr = (n, epoch.offsets, epoch.rows_np, scores32, tag_cats, entry_cats, epoch.name_to_tid)
+    a, b, c, d, e = (f"tag_{t:04d}" for t in (0, 1, 2, 4, 5))
+    mid, rare = "tag_0500", "tag_8000"
+    queries = [
+        a, f"{a} {b}", f"{a} OR {mid}", f"{a} -{b}", f"NOT {rare}", f"( {a} OR {b} ) {c}", f"{a} AND ( {d} OR {e} )",
+        "category:character", "category:meta score>=0.5", "score>=0.998", "score<0.0625", "score=0.5",
+        "unknown_tag", f"{rare} OR unknown_tag", f"-( {a} {b} ) category:copyright",
+    ]
+    t0 = time.perf_counter()
+    for i, query in enumerate(queries):
+        thr = normalize_thresholds(THRESHOLD_SETS[i % 3])
+        words = engine._mask_words(epoch, engine._slot_tables_np(epoch, parse_query(query), thr))
+        got = engine._unpack_mask(words.cpu().numpy(), n)
+        want = _numpy_mask(parse_query(query), csr, thr)
+        check(np.array_equal(got, want), f"scale mask {query!r}: differs from the numpy evaluation "
+              f"({int((got != want).sum())} of {n} files)")
+        if i < 3 or query.startswith("score"):
+            print(f"query scale: mask {query!r}: {int(got.sum())} files")
+    print(f"query scale: {len(queries)} masks equal the numpy evaluation over the host CSR "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del scores32, entry_cats, csr
+
+    # latency, warm: 50 single queries by the host clock, the device's share
+    # of each by CUDA events around the mask evaluation
+    mix = [q for q in queries if q != "score=0.5"] + [f"tag_{t:04d} tag_{t + 1:04d}" for t in range(10, 40, 3)]
+    for query in mix[:3]:
+        engine.search_epoch(epoch, query, limit=200)
+    walls, dev_ms, eval_ms = [], [], []
+    for k in range(50):
+        query = mix[k % len(mix)]
+        thr = normalize_thresholds({})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = engine.search_epoch(epoch, query, limit=200)  # the catalog's default thresholds
+        walls.append((time.perf_counter() - t0) * 1e3)
+        tables = engine._slot_tables_np(epoch, parse_query(query), thr)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        words = engine._mask_words(epoch, tables)
+        end.record()
+        host = words.cpu()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+        del rows, host
+    p50 = float(np.median(walls))
+    print(f"query scale: warm search_epoch over {len(walls)} queries (limit 200, relevance order): host clock p50 "
+          f"{p50:.3f} ms, min {min(walls):.3f}, max {max(walls):.3f}; mask evaluation + copy of {epoch.n_pad // 8} "
+          f"bytes p50 {float(np.median(eval_ms)):.3f} ms, of which the device is busy p50 "
+          f"{float(np.median(dev_ms)):.3f} ms (CUDA events); the rest of a query is parse, unpack, relevance and "
+          f"ordering on the host")
+    t0 = time.perf_counter()
+    engine.search_epoch(epoch, "score=0.5", limit=200)
+    print(f"query scale: 'score=0.5' (the one term that walks all {nnz} postings): "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+
+    batch_queries = [mix[k % len(mix)] for k in range(32)]
+    engine.search_epoch_batch(epoch, batch_queries[:4], limit=200)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = engine.search_epoch_batch(epoch, batch_queries, limit=200)
+    t_batch = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    singles = [engine.search_epoch(epoch, q, limit=200) for q in batch_queries]
+    t_singles = (time.perf_counter() - t0) * 1e3
+    check(batch == singles, "scale: search_epoch_batch != the singles")
+    print(f"query scale: batch of 32: {t_batch:.2f} ms; the same 32 one by one: {t_singles:.2f} ms; equal results; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    del epoch
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Slice phase: the port's CLI over a seeded library
 # ---------------------------------------------------------------------------
 
@@ -1184,8 +1799,11 @@ def main() -> int:
         lib, labels, cfg = write_workspace(work)
         attn["launches"] = slice_phase(work, lib, labels, cfg)
         window["launches"], ln["launches"] = swin_phase(work, lib, labels, cfg)
+        query_cli_phase(work, lib, labels, cfg)
         hamming["launches"] = dup_scan_phase()
         dup_cli_phase(work)
+        query_parity_phase(work)
+        query_scale_phase()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")

@@ -2,10 +2,12 @@
 
 Counterpart of ``kobato_eyes_tpu/cli.py`` for the commands ported so far:
 ``index`` (scan + tag + write, with fused signatures), ``search`` over the
-SQL backend, ``dup`` (duplicate scan, sweep, refinement, cohesion audit,
-export, trash) and ``validate-checkpoint`` (import -> exact-vs-fast parity
--> tag flips). The device query engine and the other commands come with
-later slices.
+device query engine (the default backend) or SQL, with CSV export and
+result copying, ``repl`` (queries against a resident epoch), ``dup``
+(duplicate scan, sweep, refinement, cohesion audit, export, trash) and
+``validate-checkpoint`` (import -> exact-vs-fast parity -> tag flips). The
+other commands (``serve``, ``retag``, ``refresh``, ...) come with later
+slices.
 
 Usage: ``python -m kobato_eyes_tpu_torch.cli [--device cuda|cpu] <command> ...``
 """
@@ -89,41 +91,152 @@ def cmd_index(args) -> int:
 
 
 def cmd_search(args) -> int:
-    if args.backend == "device":
-        print("search --backend device: device query engine not yet ported; "
-              "use --backend sql", file=sys.stderr)
-        return 2
     settings, db = _load_env(args)
     from kobato_eyes_tpu_torch.db.connection import bootstrap
-    from kobato_eyes_tpu_torch.db.repository import load_tag_thresholds, search_files
+    from kobato_eyes_tpu_torch.db.repository import load_tag_thresholds, search_files, tags_for_files
     from kobato_eyes_tpu_torch.query.ast import extract_positive_tag_terms
+    from kobato_eyes_tpu_torch.query.engine import search_epoch, search_epoch_batch
     from kobato_eyes_tpu_torch.query.sql import normalize_thresholds, translate_query
 
     queries: list[str] = args.query
     multi = len(queries) > 1
+    db_mtime = _catalog_mtime(db)  # before this process's own connection touches -shm
     conn = bootstrap(db)
     try:
         thresholds = load_tag_thresholds(conn)
         t0 = time.perf_counter()
-        results = []
-        for q in queries:
-            frag = translate_query(q, thresholds=thresholds)
-            rows = search_files(
-                conn, frag.where, frag.params,
-                positive_tags=extract_positive_tag_terms(q),
-                thresholds=normalize_thresholds(thresholds),
-                order_by=args.order, limit=args.limit, offset=args.offset,
+        if args.backend == "device":
+            epoch = _load_or_build_epoch(conn, db_mtime, args)
+            if multi:
+                # every query's mask is enqueued before the batch waits once
+                # for all of them (engine.search_epoch_batch)
+                per_query = search_epoch_batch(
+                    epoch, queries, thresholds=thresholds,
+                    order_by=args.order, limit=args.limit, offset=args.offset,
+                )
+            else:
+                per_query = [search_epoch(
+                    epoch, queries[0], thresholds=thresholds,
+                    order_by=args.order, limit=args.limit, offset=args.offset,
+                )]
+            grouped = [
+                (q, [
+                    {"file_id": r.file_id, "path": r.path, "relevance": r.relevance,
+                     **({"query": q} if multi else {})}
+                    for r in rows
+                ])
+                for q, rows in zip(queries, per_query)
+            ]
+        else:
+            grouped = []
+            for q in queries:
+                frag = translate_query(q, thresholds=thresholds)
+                rows = search_files(
+                    conn, frag.where, frag.params,
+                    positive_tags=extract_positive_tag_terms(q),
+                    thresholds=normalize_thresholds(thresholds),
+                    order_by=args.order, limit=args.limit, offset=args.offset,
+                )
+                grouped.append((q, [
+                    {"file_id": r.file_id, "path": r.path, "relevance": r.relevance,
+                     "tags": r.tags[:10], **({"query": q} if multi else {})}
+                    for r in rows
+                ]))
+        results = [r for _, rows in grouped for r in rows]
+        elapsed = time.perf_counter() - t0
+        if args.export:
+            out = _export_csv(args.export, results)
+            print(f"exported {len(results)} rows to {out}", file=sys.stderr)
+        if args.copy or args.copy_to:
+            # "Copy results…" (reference ui/tags_db.py:36-126): copy the FULL
+            # hit set of each query — not the displayed page — into a
+            # per-query folder; collisions suffix _2/_3…, missing sources
+            # count as failures without aborting the batch.
+            from kobato_eyes_tpu_torch.utils.export import (
+                copy_results, make_export_dir, sanitize_for_folder,
             )
+
+            sr_root = get_app_paths(
+                args.data_dir or settings.data_dir
+            ).cache_dir / "search_results"
+            for q, _rows in grouped:
+                if args.backend == "device":
+                    hits = search_epoch(
+                        epoch, q, thresholds=thresholds,
+                        order_by=args.order, limit=max(1, len(epoch.paths)),
+                        offset=0,
+                    )
+                else:
+                    frag = translate_query(q, thresholds=thresholds)
+                    hits = search_files(
+                        conn, frag.where, frag.params,
+                        positive_tags=extract_positive_tag_terms(q),
+                        thresholds=normalize_thresholds(thresholds),
+                        order_by=args.order, limit=2**31 - 1, offset=0,
+                        hydrate=False,
+                    )
+                if args.copy_to:
+                    dest = Path(args.copy_to)
+                    if multi:
+                        dest = dest / sanitize_for_folder(q)
+                else:
+                    dest = make_export_dir(q, sr_root)
+                ok, ng = copy_results([h.path for h in hits], dest)
+                print(
+                    f"copied {ok} file(s), {ng} failed -> {dest}"
+                    + (f"  # query: {q}" if multi else ""),
+                    file=sys.stderr,
+                )
+        for q, rows in grouped:
             if multi:
                 print(f"# query: {q}")
             for r in rows:
-                print(f"{r.relevance:8.3f}  {r.path}")
-            results.extend(rows)
-        elapsed = time.perf_counter() - t0
+                print(f"{r['relevance']:8.3f}  {r['path']}")
+        ids = [r["file_id"] for r in results]
+        if args.show_tags and args.backend == "device" and ids:
+            for fid, tags in tags_for_files(conn, ids[: args.limit]).items():
+                print(f"# {fid}: {', '.join(f'{n}:{s:.2f}' for n, s, _ in tags[:8])}")
         print(f"{len(results)} results in {elapsed * 1000:.1f} ms", file=sys.stderr)
     finally:
         conn.close()
     return 0
+
+
+def _catalog_mtime(db: Path) -> float:
+    """When the catalog last changed. WAL-mode commits land in db-wal without
+    touching the main db file's mtime — freshness must consider both (plus
+    -shm for completeness). Opening a connection creates or touches the side
+    files, so this is read before the caller opens its own (the JAX package
+    reads it after, and then never finds its snapshot fresh)."""
+    return max(
+        (p.stat().st_mtime for p in (db, Path(str(db) + "-wal"), Path(str(db) + "-shm"))
+         if p.exists()),
+        default=0.0,
+    )
+
+
+def _load_or_build_epoch(conn, db_mtime: float, args):
+    """Reuse the on-disk epoch snapshot when it's newer than the catalog
+    (``db_mtime`` from :func:`_catalog_mtime`); otherwise build fresh and
+    refresh the snapshot (fast repeat searches). Either way the epoch lands
+    on ``args.device``."""
+    from kobato_eyes_tpu_torch.core.config.service import load_settings as _ls
+    from kobato_eyes_tpu_torch.query.engine import build_epoch
+    from kobato_eyes_tpu_torch.query.snapshot import load_epoch, save_epoch
+
+    settings = _ls(args.config)
+    snap = get_app_paths(args.data_dir or settings.data_dir).index_dir / "epoch.npz"
+    try:
+        if snap.exists() and snap.stat().st_mtime >= db_mtime:
+            return load_epoch(snap, device=args.device)
+    except (OSError, ValueError, KeyError) as exc:
+        logger.warning("epoch snapshot unusable (%s); rebuilding", exc)
+    epoch = build_epoch(conn, device=args.device)
+    try:
+        save_epoch(epoch, snap)
+    except OSError as exc:
+        logger.warning("failed to save epoch snapshot: %s", exc)
+    return epoch
 
 
 def _export_csv(dest: str, rows: list[dict]) -> Path:
@@ -257,6 +370,59 @@ def cmd_dup(args) -> int:
     return 0
 
 
+def cmd_repl(args) -> int:
+    """Interactive query loop over a resident epoch (steady-state serving).
+
+    Unlike ``search`` (one process per query), the epoch stays on the device
+    between queries — the production latency path.
+    Reads one query per line from stdin; ':reload' rebuilds the epoch,
+    ':quit' exits.
+    """
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.db.repository import load_tag_thresholds
+    from kobato_eyes_tpu_torch.query.engine import EpochManager, search_epoch
+
+    conn = bootstrap(db)
+    manager = EpochManager(device=args.device)
+    manager.rebuild(conn)
+    thresholds = load_tag_thresholds(conn)
+    print(
+        f"epoch v{manager.current.version}: {manager.current.num_files} files, "
+        f"{manager.current.num_tags} tags; ':reload' to rebuild, ':quit' to exit",
+        file=sys.stderr,
+    )
+    try:
+        for line in sys.stdin:
+            query = line.strip()
+            if not query:
+                continue
+            if query == ":quit":
+                break
+            if query == ":reload":
+                manager.rebuild(conn)
+                thresholds = load_tag_thresholds(conn)
+                print(f"epoch v{manager.current.version} rebuilt", file=sys.stderr)
+                continue
+            t0 = time.perf_counter()
+            try:
+                rows = search_epoch(
+                    manager.current, query, thresholds=thresholds, limit=args.limit
+                )
+            except ValueError as exc:
+                print(f"error: {exc}", file=sys.stderr)
+                continue
+            for r in rows:
+                print(f"{r.relevance:8.3f}  {r.path}")
+            print(
+                f"{len(rows)} results in {(time.perf_counter() - t0) * 1000:.1f} ms",
+                file=sys.stderr,
+            )
+    finally:
+        conn.close()
+    return 0
+
+
 def cmd_validate_checkpoint(args) -> int:
     """Import -> strict manifest -> exact-vs-fast forward parity -> tag parity
     at production thresholds; exit 0 iff everything holds (models/validate.py)."""
@@ -286,7 +452,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", help="settings.yaml path")
     parser.add_argument("--data-dir", help="data directory override")
     parser.add_argument("--device", default="cuda",
-                        help="torch device for the tagger, signatures and the dup scan "
+                        help="torch device for the tagger, signatures, the dup scan and the query epoch "
                              "(default cuda; 'cpu' to run without a GPU)")
     parser.add_argument("-v", "--verbose", action="store_true")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -295,12 +461,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--root", action="append", help="scan root (repeatable)")
     p.set_defaults(fn=cmd_index)
 
-    p = sub.add_parser("search", help="tag query search")
+    p = sub.add_parser("search", help="tag query search (multiple queries wait once for the device)")
     p.add_argument("query", nargs="+")
     p.add_argument("--backend", choices=["device", "sql"], default="device")
     p.add_argument("--order", choices=["relevance", "mtime", "path", "id"], default="relevance")
     p.add_argument("--limit", type=int, default=200)
     p.add_argument("--offset", type=int, default=0)
+    p.add_argument("--export", help="CSV file or directory")
+    p.add_argument("--copy", action="store_true",
+                   help="copy every hit into a timestamped folder under the "
+                        "data dir's cache/search_results (reference "
+                        "'Copy results…')")
+    p.add_argument("--copy-to", metavar="DIR",
+                   help="copy every hit into DIR (per-query subfolders when "
+                        "multiple queries are given)")
+    p.add_argument("--show-tags", action="store_true")
     p.set_defaults(fn=cmd_search)
 
     p = sub.add_parser("dup", help="duplicate scan (+ refinement)")
@@ -316,6 +491,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dense intra-cluster Hamming audit (diameter/mean/"
                         "keeper eccentricity) for threshold tuning")
     p.set_defaults(fn=cmd_dup)
+
+    p = sub.add_parser("repl", help="interactive query loop (resident epoch)")
+    p.add_argument("--limit", type=int, default=20)
+    p.set_defaults(fn=cmd_repl)
 
     p = sub.add_parser(
         "validate-checkpoint",

@@ -9,9 +9,13 @@ fuses pHash/dHash into its decode and dispatch for every tagged file that
 lacks a signature row; the hash pass runs on the tagger's device, or on
 ``device`` for a tagger without one (the dummy).
 
-What the JAX package runs beyond that comes with later slices of the port:
+After the write phase an ``epoch_manager`` (``query.engine.EpochManager``)
+gets the device query epoch swapped: a full build on the first run, a delta
+over the files whose catalog rows moved after that.
+
+What the JAX package runs beyond that comes with a later slice of the port:
 the ANN embed lane (``settings.index.enabled``) logs one warning and is
-skipped, and the device query epoch swap (``epoch_manager``) raises.
+skipped.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import sqlite3
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Callable
+from typing import Callable
 
 from kobato_eyes_tpu_torch.core.config.schema import Settings
 from kobato_eyes_tpu_torch.core.pipeline.contracts import ScanResult
@@ -32,6 +36,7 @@ from kobato_eyes_tpu_torch.core.progress import IndexPhase, ProgressCallback, Pr
 from kobato_eyes_tpu_torch.db.connection import bootstrap, quiesced
 from kobato_eyes_tpu_torch.device import resolve_device
 from kobato_eyes_tpu_torch.models.base import ITagger
+from kobato_eyes_tpu_torch.query.engine import EpochManager
 from kobato_eyes_tpu_torch.services.writer import CatalogWriter
 
 logger = logging.getLogger(__name__)
@@ -59,18 +64,15 @@ class IndexPipeline:
         settings: Settings,
         tagger: ITagger,
         *,
-        epoch_manager: Any = None,
+        epoch_manager: EpochManager | None = None,
         progress: ProgressCallback | None = None,
         is_cancelled: Callable[[], bool] | None = None,
         device=None,
     ) -> None:
-        if epoch_manager is not None:
-            raise NotImplementedError(
-                "the device query epoch comes with the query-engine slice of the port"
-            )
         self._db_path = Path(db_path)
         self._settings = settings
         self._tagger = tagger
+        self._epochs = epoch_manager
         # where the fused hash pass runs: the tagger's device, else ``device``
         tagger_device = getattr(tagger, "device", None)
         self._device = tagger_device if tagger_device is not None else device
@@ -187,6 +189,29 @@ class IndexPipeline:
         stats.extra["tag_infer_s"] = round(tag_result.infer_seconds, 3)
         stats.extra["signatures_fused"] = tag_result.signed
 
+        # EPOCH swap (the reference's offline FTS rebuild, device edition).
+        # Incremental when an epoch is already live: only tagged + vanished
+        # files are re-read (delta build), else a full snapshot.
+        t_stage = time.perf_counter()
+        if self._epochs is not None and not self._is_cancelled():
+            self._progress.phase(IndexPhase.EPOCH)
+            # everything whose catalog row moved: tagged, tag-failed (must
+            # still appear in the epoch), and metadata-touched files
+            changed = [
+                r.file_id for r in scan.records if r.tagged or r.failed or r.touched
+            ]
+            changed.extend(scan.missing_ids)
+            conn = bootstrap(self._db_path)
+            try:
+                if self._epochs.current is None:
+                    epoch = self._epochs.rebuild(conn)
+                else:
+                    epoch = self._epochs.apply_delta(conn, changed)
+                stats.epoch_version = epoch.version
+            finally:
+                conn.close()
+            walls["epoch"] = round(time.perf_counter() - t_stage, 3)
+
         stats.elapsed_sec = time.perf_counter() - t0
         self._progress.phase(IndexPhase.DONE)
         logger.info("index run: %s", stats)
@@ -198,13 +223,14 @@ def run_index_once(
     settings: Settings,
     tagger: ITagger,
     *,
-    epoch_manager: Any = None,
+    epoch_manager: EpochManager | None = None,
     progress: ProgressCallback | None = None,
     is_cancelled: Callable[[], bool] | None = None,
     device=None,
 ) -> IndexStats:
     """Headless single-pass API (reference run_index_once). ``device`` places
-    the fused signature pass when the tagger has no device of its own."""
+    the fused signature pass when the tagger has no device of its own; the
+    epoch swap runs on the ``epoch_manager``'s own device."""
     return IndexPipeline(
         db_path, settings, tagger,
         epoch_manager=epoch_manager, progress=progress, is_cancelled=is_cancelled,

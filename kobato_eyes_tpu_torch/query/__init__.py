@@ -1,7 +1,13 @@
-"""Tag query language: the AST and its SQL backend.
+"""Tag query language and execution engines.
 
-The device query engine (``query/engine.py`` in the JAX package) comes with
-a later slice of the port.
+Grammar parity with the reference (``src/core/query.py``): AND/OR/NOT,
+parentheses, implicit AND by adjacency, ``category:<name>``, ``score>=x``,
+escaped parens inside tag names.  Two backends execute the same AST:
+
+* ``kobato_eyes_tpu_torch.query.sql`` — EXISTS-subquery SQL against the host
+  catalog (fallback + executable spec);
+* ``kobato_eyes_tpu_torch.query.engine`` — vectorized set algebra over
+  device-resident posting lists (the hot path).
 """
 
 from kobato_eyes_tpu_torch.query.ast import (

@@ -30,7 +30,13 @@ def _inputs(shape, seed=0):
     )
 
 
-@pytest.mark.parametrize("shape", [(448, 128), (32, 14, 14, 256), (896, 1024), (64, 100)])
+# the shapes the CUDA source's two kernels split on: C = 128 (two rows a
+# warp), 256, 512, 1024 (one to four 8-column chunks a lane), C = 100 (the
+# scalar kernel), C = 8 * odd, and row counts that leave a ragged last warp
+@pytest.mark.parametrize("shape", [
+    (448, 128), (32, 14, 14, 256), (896, 1024), (64, 100),
+    (37, 128), (200, 512), (301, 640), (99, 104), (5, 8), (3, 1024),
+])
 def test_matches_jax_kernel(shape):
     x, res, gamma, beta = _inputs(shape)
     want = np.asarray(jax_ln_res(*(jnp.asarray(a) for a in (x, res, gamma, beta))))
@@ -57,3 +63,27 @@ def test_kernel_checks_reject_what_it_does_not_take():
     x, res, gamma, beta = (torch.from_numpy(a) for a in _inputs((8, 128)))
     with pytest.raises(ValueError, match="CUDA"):
         lnr.check_inputs(x, res, gamma, beta)
+
+
+@pytest.mark.parametrize("channels,aligned,want", [
+    (128, True, "vec8"), (256, True, "vec8"), (512, True, "vec8"), (1024, True, "vec8"),
+    (8, True, "vec8"), (104, True, "vec8"), (100, True, "scalar"), (1023, True, "scalar"),
+    (128, False, "scalar"), (1024, False, "scalar"),
+])
+def test_kernel_variant_is_chosen_by_shape_and_alignment(channels, aligned, want):
+    assert lnr.kernel_variant(channels, aligned=aligned) == want
+
+
+def test_alignment_is_read_from_the_tensors():
+    """A contiguous view that starts 8 bytes off a 16-byte boundary goes to
+    the scalar kernel; the wrapper decides before any launch."""
+    x, res, gamma, beta = (torch.from_numpy(a) for a in _inputs((16, 128)))
+    assert lnr.aligned_for_vec(x, res, gamma, beta)
+    off = torch.cat([x.new_zeros(2), x.reshape(-1)])[2:].view(16, 128)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 8
+    assert not lnr.aligned_for_vec(off, res, gamma, beta)
+    assert lnr.kernel_variant(128, aligned=lnr.aligned_for_vec(off, res, gamma, beta)) == "scalar"
+    # on the CPU the wrapper takes the plain version whatever the variant
+    np.testing.assert_array_equal(lnr.layernorm_residual(off, res, gamma, beta).numpy(),
+                                  lnr.layernorm_residual_plain(x, res, gamma, beta).numpy())
+    assert lnr.launches == 0 or not torch.cuda.is_available()

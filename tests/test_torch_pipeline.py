@@ -202,11 +202,26 @@ def test_port_cli_index_and_search_on_cpu(library, tmp_path, monkeypatch, capsys
     stats = capsys.readouterr().out.strip().splitlines()[-1]
     assert '"tagged": 12' in stats and '"tag_failed": 1' in stats
     assert tcli.main(base + ["search", "--backend", "sql", "tag_1 OR tag_2 OR tag_3"]) == 0
-    assert capsys.readouterr().out.strip()
-    assert tcli.main(base + ["search", "--backend", "device", "tag_1"]) != 0
-    assert "not yet ported" in capsys.readouterr().err
+    want = capsys.readouterr().out
+    assert want.strip()
+    # the default backend is the device engine; it answers what SQL answers
+    assert tcli.main(base + ["search", "tag_1 OR tag_2 OR tag_3"]) == 0
+    assert capsys.readouterr().out == want
+    assert tcli.main(base + ["search", "--backend", "device", "tag_1"]) == 0
+    assert "not yet ported" not in capsys.readouterr().err
 
 
-def test_epoch_manager_waits_for_its_slice(tmp_path):
-    with pytest.raises(NotImplementedError):
-        trun(tmp_path / "c.sqlite3", Settings(), ttagger.DummyTagger(), epoch_manager=object())
+def test_epoch_manager_waits_for_its_slice(library, tmp_path):
+    """The slice has come: an index run given an ``EpochManager`` swaps the
+    epoch in (a full build on the first run), and nothing raises."""
+    from kobato_eyes_tpu_torch.query.engine import EpochManager, search_epoch
+
+    treset()
+    manager = EpochManager(device="cpu")
+    settings = Settings(pipeline=PipelineSettings(roots=[library], batch_size=4, io_workers=2))
+    stats = trun(tmp_path / "c.sqlite3", settings, ttagger.DummyTagger(), epoch_manager=manager,
+                 device="cpu")
+    assert stats.epoch_version == 1 and manager.current.version == 1
+    assert "epoch" in stats.extra["stage_walls"]
+    assert manager.current.num_files == stats.tagged + stats.tag_failed
+    assert len(search_epoch(manager.current, "", limit=100)) == manager.current.num_files

@@ -2,7 +2,9 @@
 
 Import ``native_built`` into a test module to build and load the
 ``_hamming_scan`` and ``_assembly`` extensions of the port and of the JAX
-package before its tests run.
+package before its tests run; import ``catalog_fetch_built`` for the
+``_catalog_fetch`` library (plain C, loaded with ctypes) that both packages'
+epoch builds read a catalog file through.
 """
 
 from __future__ import annotations
@@ -18,25 +20,42 @@ MODULES = ("hamming_scan", "assembly")
 JAX_LOAD_TIMEOUT_S = 120.0
 
 
-def _load_jax_module(name: str):
-    """The JAX package's extension, through its own loader. That loader builds
+CATALOG_FETCH_LINK = ("-l:libsqlite3.so.0",)
+
+
+def _load_jax_module(name: str, library: bool = False):
+    """The JAX package's extension (or, with ``library``, its plain-C
+    library), through its own loader. That loader builds
     to one fixed temporary name with no lock between processes, and its own
     tests in other workers build without this fixture's lock: a load that
     meets a half-written or just-renamed file is tried again until the other
     build has finished. A compiler's own error is raised at once: only a
     failed g++ whose message names the shared temporary file (another build
     renamed it away first) belongs to the race."""
-    from kobato_eyes_tpu.native.build import NativeBuildError, load_extension_module
+    from kobato_eyes_tpu.native.build import NativeBuildError, load_extension_module, load_native_library
 
     deadline = time.monotonic() + JAX_LOAD_TIMEOUT_S
     while True:
         try:
+            if library:
+                return load_native_library(name, extra_link_args=CATALOG_FETCH_LINK)
             return load_extension_module(name)
-        except (ImportError, FileNotFoundError, NativeBuildError) as exc:
+        except (ImportError, OSError, NativeBuildError) as exc:
             raced = not isinstance(exc, NativeBuildError) or f"_{name}.tmp.so" in str(exc)
             if not raced or time.monotonic() >= deadline:
                 raise
             time.sleep(0.5)
+
+
+def _under_build_lock(build):
+    lock = ROOT / "build" / "native_build.lock"
+    lock.parent.mkdir(exist_ok=True)
+    with lock.open("w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            return build()
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -46,13 +65,23 @@ def native_built():
     port's loaded modules by name, and the JAX package's under ``"jax"``."""
     from kobato_eyes_tpu_torch.native.build import load_extension_module
 
-    lock = ROOT / "build" / "native_build.lock"
-    lock.parent.mkdir(exist_ok=True)
-    with lock.open("w") as fh:
-        fcntl.flock(fh, fcntl.LOCK_EX)
-        try:
-            built = {name: load_extension_module(name) for name in MODULES}
-            built["jax"] = {name: _load_jax_module(name) for name in MODULES}
-            return built
-        finally:
-            fcntl.flock(fh, fcntl.LOCK_UN)
+    def build():
+        built = {name: load_extension_module(name) for name in MODULES}
+        built["jax"] = {name: _load_jax_module(name) for name in MODULES}
+        return built
+
+    return _under_build_lock(build)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def catalog_fetch_built():
+    """Build and load both packages' ``_catalog_fetch.so`` under the same
+    lock, so an epoch build in a test finds the library loaded and its native
+    fetch route runs. Returns (the port's library, the JAX package's)."""
+    from kobato_eyes_tpu_torch.native.build import load_native_library
+
+    def build():
+        return (load_native_library("catalog_fetch", extra_link_args=CATALOG_FETCH_LINK),
+                _load_jax_module("catalog_fetch", library=True))
+
+    return _under_build_lock(build)
