@@ -34,10 +34,19 @@ batch 32, random seeded weights):
   backend in ids and relevance, the batch equals the singles and
   ``update_epoch`` equals a fresh ``build_epoch``; and 1 000 000 files with
   ~31 M postings through ``_assemble_epoch``, masks against a plain numpy
-  evaluation, build wall, device memory and query latencies.
+  evaluation, build wall, device memory and query latencies;
+* ANN: the CLIP ViT-B/32 @ 224 embed forward (ms, MFU), an index run with
+  ``index.enabled`` whose fused lane must embed every tagged file from the
+  tagger's own device tensor, flat search at 1M x 512 against an f64
+  evaluation (planted duplicates: ties lowest row first), IVF at 1M with
+  its recall against flat, HNSW at 20 000 on the host, and ``ann
+  --similar-to``, ``--build`` and ``--query-image`` through the CLI.
 
-Each kernel's launch count is set to 0 just before the path that runs it
-and read just after. It checks each tagger's fast forward against its exact
+Kernels 3 and 5 run shorter than the host takes to enqueue a call, so their
+times are taken through CUDA graphs. Each kernel's launch count is set to 0
+just before the path that runs it and read just after; the attention
+wrapper counts its packed and its separate-q, k, v entries apart, and the
+latter's count is summed over the ViT, SwinV2 and ANN index runs. It checks each tagger's fast forward against its exact
 forward, and prints one JSON line of kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. Any failed phase exits
 non-zero before the last line. Without a CUDA device, or without the
@@ -84,6 +93,17 @@ N_DUP_BIG = 1_000_000
 DUP_SEED = 1234
 AUDIT_BATCH = 4096
 DUP_LIB_IMAGES = 48
+# ANN path: the flat and IVF corpus (1M x 512 f32, 2.05 GB resident), its
+# query batch, IVF's clusters, Lloyd steps and probes, the HNSW corpus
+ANN_N = 1_000_000
+ANN_DIM = 512
+ANN_QUERIES = 32
+ANN_K = 10
+ANN_CLUSTERS = 1000
+ANN_PLANTED = 16  # source rows, each copied to 4 other rows: 64 planted duplicates
+IVF_ITERS = 10
+IVF_NPROBE = 8
+HNSW_N = 20_000
 
 
 class SmokeFailure(RuntimeError):
@@ -190,7 +210,9 @@ def _extreme_qkv(t: int, h: int, d: int, seed: int):
     return np.stack([q, k, v], axis=2).astype(np.float32)
 
 
-def attention_phase() -> dict:
+def attention_phase() -> tuple[dict, dict]:
+    """Kernel 1 (packed qkv) and kernel 2 (separate q, k, v; the same CUDA
+    kernels) against their plain versions; returns both kernels' entries."""
     import numpy as np
     import torch
 
@@ -276,7 +298,26 @@ def attention_phase() -> dict:
         f"({flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB), "
         f"kernel rate {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s"
     )
-    return {
+    # kernel 2: the same kernels through the entry with separate q, k, v
+    err_sep = compare("vit-b448 bf16 B=32 unpacked", main, scale, 3e-2, packed=False)
+    qs, ks, vs = (x.contiguous() for x in main.unbind(dim=2))
+    sep_ms = cuda_ms(lambda: attn.head_resident_attention(qs, ks, vs, scale=scale), iters=20)
+    sep_plain_ms = cuda_ms(lambda: attn.head_resident_attention_plain(qs, ks, vs, scale=scale), iters=5)
+    print(f"attention vit-b448 bf16 B=32 unpacked q, k, v: kernel {sep_ms:.4f} ms, plain {sep_plain_ms:.4f} ms")
+    separate = {
+        "name": "head_resident_attention (separate q, k, v)",
+        "route": "cuda",
+        "source": "kobato_eyes_tpu_torch/csrc/head_resident_attention.cu",
+        "replaces": "kobato_eyes_tpu/ops/pallas_attention.py:78",
+        "launches": None,  # filled from the main paths' runs
+        "max_abs_err": err_sep,
+        "ms": sep_ms,
+        "plain_ms": sep_plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+    packed = {
         "name": "head_resident_attention",
         "route": "cuda",
         "source": "kobato_eyes_tpu_torch/csrc/head_resident_attention.cu",
@@ -289,6 +330,7 @@ def attention_phase() -> dict:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
     }
+    return packed, separate
 
 
 def _window_inputs(batch, nw, n, heads, hd, dtype, seed, masked):
@@ -390,11 +432,23 @@ def window_attention_phase() -> dict:
             torch.full((4, n, n), 16.0, device=dev),
             torch.from_numpy(np.ascontiguousarray(mask_np[:, :n, :n])).to(dev), 3e-2, variant="mma")
 
+    # Times. Stages 2 and 3 run shorter than the host takes to enqueue a
+    # call, so every kernel time is taken through a CUDA graph: 24 calls
+    # rotating over copies of qkv that together exceed the 50 MB L2 ("cold",
+    # as the byte bound assumes). The eager reading (host included) is
+    # printed beside it.
     rows = []
     for stage, (nw, h) in enumerate(SWIN_B448_STAGES):
         qkv, scale, bias, mask = main[stage]
-        ms = cuda_ms(lambda: wa.windowed_cosine_attention_packed(qkv, scale, bias, mask), iters=20)
-        unmasked_ms = cuda_ms(lambda: wa.windowed_cosine_attention_packed(qkv, scale, bias, None), iters=20)
+        call_bytes = qkv.numel() * qkv.element_size() * 4 // 3  # qkv read, out written
+        copies = min(24, -(-400_000_000 // call_bytes))
+        sets = [qkv] + [qkv.clone() for _ in range(copies - 1)]
+        ms = cuda_graph_ms([lambda x=sets[i % copies]: wa.windowed_cosine_attention_packed(x, scale, bias, mask)
+                            for i in range(24)])
+        unmasked_ms = cuda_graph_ms([lambda x=sets[i % copies]: wa.windowed_cosine_attention_packed(x, scale, bias, None)
+                                     for i in range(24)])
+        del sets
+        eager_ms = cuda_ms(lambda: wa.windowed_cosine_attention_packed(qkv, scale, bias, mask), iters=20)
         plain_ms = cuda_ms(lambda: wa.windowed_cosine_attention_packed_plain(qkv, scale, bias, mask), iters=5)
         # yardstick: SDPA on pre-normalised, per-head-scaled q and k laid out
         # (B, nW*H, n, hd) with attn_mask = bias + mask; the normalisation
@@ -421,7 +475,9 @@ def window_attention_phase() -> dict:
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         print(
             f"window attention swinv2-b448 stage {stage} bf16 B={b} nW={nw} H={h}: kernel {ms:.4f} ms "
-            f"({unmasked_ms:.4f} ms without a mask), plain {plain_ms:.4f} ms, sdpa call alone {library_ms:.4f} ms, "
+            f"through a CUDA graph, cold over {copies} input set(s) ({unmasked_ms:.4f} ms without a mask; "
+            f"{ms / max(t_ops, t_bytes):.2f}x the bound; enqueued call by call {eager_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, sdpa call alone {library_ms:.4f} ms, "
             f"bound {max(t_ops, t_bytes):.4f} ms (bytes {t_bytes:.4f}: {bytes_moved / 1e6:.1f} MB; operations "
             f"{t_ops:.4f}: {flops / 1e9:.2f} GFLOP, half of them on f32 operands at {F32_FLOPS_PER_S / 1e12:.0f} "
             f"TFLOP/s; {'bytes' if t_bytes >= t_ops else 'operations'} bound), "
@@ -622,7 +678,12 @@ def pairwise_hamming_phase() -> dict:
     got = compare("known values", known, known).cpu()
     check((int(got[0, 1]), int(got[0, 2]), int(got[1, 2])) == (64, 1, 63), "pairwise known values")
 
-    ms = cuda_ms(lambda: pw.pairwise_hamming_tensor(a, a), iters=50)
+    # the kernel runs ~0.02-0.03 ms, under the host's enqueue time: timed
+    # through a CUDA graph over rotating input sets (the output alone, 67 MB,
+    # exceeds the 50 MB L2); the eager reading is printed beside it
+    sets = [hashes(AUDIT_BATCH, 40 + i) for i in range(4)]
+    ms = cuda_graph_ms([lambda x=sets[i % 4]: pw.pairwise_hamming_tensor(x, x) for i in range(24)])
+    eager_ms = cuda_ms(lambda: pw.pairwise_hamming_tensor(a, a), iters=50)
     plain_ms = cuda_ms(lambda: pw.pairwise_hamming_plain(a, a), iters=5)
     out = pw.pairwise_hamming_tensor(a, a)
     synchronize()
@@ -638,8 +699,9 @@ def pairwise_hamming_phase() -> dict:
     # CUDA cores, counted at the non-tensor f32 rate
     t_ops = 4.0 * n * n / F32_FLOPS_PER_S * 1e3
     print(
-        f"pairwise_hamming {n}x{n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {max(t_ops, t_bytes):.4f} ms ({bytes_moved / 1e6:.1f} MB, bytes), "
+        f"pairwise_hamming {n}x{n}: kernel {ms:.4f} ms through a CUDA graph "
+        f"({ms / max(t_ops, t_bytes):.2f}x the bound; enqueued call by call {eager_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms ({bytes_moved / 1e6:.1f} MB, bytes), "
         f"result copy to host {min(d2h):.3f} ms (min of 5; all {', '.join(f'{x:.3f}' for x in d2h)})"
     )
     return {
@@ -844,17 +906,19 @@ def dup_scan_phase() -> int:
           f"{(wall2 - split['kernel'] - split['copy']) * 1e3:.1f} ms; diameter max "
           f"{max(s.diameter for s in stats)}")
 
-    # the kernel at the shapes the audit launched it with, each timed with
-    # CUDA events on seeded hashes
+    # the kernel at the shapes the audit launched it with, on seeded hashes,
+    # each timed through a CUDA graph (the eager reading beside it)
     rng = np.random.default_rng(DUP_SEED + 3)
-    times, bounds = [], []
+    times, eager, bounds = [], [], []
     for rows, cols in shapes:
         ta = pairwise_hamming.hashes_to_tensor(rng.integers(0, 1 << 64, size=rows, dtype=np.uint64), DEVICE)
         tb = pairwise_hamming.hashes_to_tensor(rng.integers(0, 1 << 64, size=cols, dtype=np.uint64), DEVICE)
-        times.append(cuda_ms(lambda: pairwise_hamming.pairwise_hamming_tensor(ta, tb), iters=20))
+        times.append(cuda_graph_ms([lambda: pairwise_hamming.pairwise_hamming_tensor(ta, tb)] * 12))
+        eager.append(cuda_ms(lambda: pairwise_hamming.pairwise_hamming_tensor(ta, tb), iters=20))
         bounds.append((rows * cols * 4 + (rows + cols) * 8) / HBM_BYTES_PER_S * 1e3)
-    print(f"pairwise_hamming at the audit's {len(shapes)} launch shapes: kernel {sum(times):.4f} ms in all "
-          f"against a byte bound of {sum(bounds):.4f} ms; "
+    print(f"pairwise_hamming at the audit's {len(shapes)} launch shapes, through a CUDA graph: kernel "
+          f"{sum(times):.4f} ms in all against a byte bound of {sum(bounds):.4f} ms "
+          f"({sum(times) / sum(bounds):.2f}x; enqueued call by call {sum(eager):.4f} ms); "
           + ", ".join(f"{r}x{c} {t:.4f} ms" for (r, c), t in zip(shapes, times)))
     return launches
 
@@ -1612,9 +1676,9 @@ def print_index_stats(name: str, stats: dict, wall: float, launches: str) -> Non
     check(stats["tag_failed"] == 0, f"{name}: tag_failed {stats['tag_failed']} != 0")
 
 
-def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> int:
+def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int]:
     """ViT index + search through the CLI; returns the attention launches of
-    the index run."""
+    the index run through the packed and the separate q, k, v entries."""
     import numpy as np
     import torch
 
@@ -1622,13 +1686,13 @@ def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> int:
 
     data = work / "data"
     base = ["--config", str(cfg), "--data-dir", str(data), "--device", "cuda"]
-    attention.launches = 0
+    attention.launches = attention.launches_separate = 0
     t0 = time.perf_counter()
     out = run_cli(base + ["index"])
     wall = time.perf_counter() - t0
-    launches = attention.launches
+    launches, separate = attention.launches, attention.launches_separate
     stats = json.loads(out.strip().splitlines()[-1])
-    print_index_stats("vit-b448", stats, wall, f"attention_launches={launches}")
+    print_index_stats("vit-b448", stats, wall, f"attention_launches={launches} separate_qkv={separate}")
     depth = 12  # ViT-B: one attention launch per layer per batch
     check(launches == depth * (N_IMAGES // BATCH),
           f"attention launches {launches} != {depth * (N_IMAGES // BATCH)}")
@@ -1665,14 +1729,15 @@ def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> int:
     print(f"vit-b448 batch-{BATCH} forward_probs: fast {fast_ms:.2f} ms, exact {exact_ms:.2f} ms "
           f"({BATCH / fast_ms * 1e3:.1f} images/s device-side on the fast path)")
     del fast, exact
-    return launches
+    return launches, separate
 
 
-def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int]:
+def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int, int]:
     """SwinV2-B/448: index through ``run_index_once``, search through the CLI,
     fast / exact / residual-LN forwards, then ``validate-checkpoint`` through
-    the CLI on the index tagger's weights. Returns the window-kernel launches
-    of the index run and the LN-kernel launches of the residual-LN batch."""
+    the CLI on the index tagger's weights. Returns the window-kernel and the
+    separate-q, k, v attention launches of the index run and the LN-kernel
+    launches of the residual-LN batch."""
     import dataclasses
 
     import numpy as np
@@ -1682,7 +1747,7 @@ def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int
     from kobato_eyes_tpu_torch.core.pipeline import run_index_once
     from kobato_eyes_tpu_torch.models.labels import load_labels
     from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
-    from kobato_eyes_tpu_torch.ops import layernorm_residual, window_attention
+    from kobato_eyes_tpu_torch.ops import attention, layernorm_residual, window_attention
     from kobato_eyes_tpu_torch.utils.image_io import load_rgb_array
 
     t0 = time.perf_counter()
@@ -1693,12 +1758,14 @@ def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int
     (data / "db").mkdir(parents=True)
     window_attention.launches = 0
     layernorm_residual.launches = 0
+    attention.launches_separate = 0
     t0 = time.perf_counter()
     stats = run_index_once(data / "db" / "catalog.sqlite3", load_settings(cfg), fast).__dict__
     wall = time.perf_counter() - t0
     win_launches, ln_launches = window_attention.launches, layernorm_residual.launches
+    separate = attention.launches_separate
     print_index_stats("swinv2-b448", stats, wall,
-                      f"window_launches={win_launches} ln_launches={ln_launches}")
+                      f"window_launches={win_launches} ln_launches={ln_launches} separate_qkv={separate}")
     depth = sum(SWIN_B448_DEPTHS)  # one window-kernel launch per block per batch
     check(win_launches == depth * (N_IMAGES // BATCH),
           f"window launches {win_launches} != {depth * (N_IMAGES // BATCH)}")
@@ -1759,7 +1826,323 @@ def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int
     )
     check(report["finite"], "validate-checkpoint: non-finite forward")
     check(report["max_prob_deviation"] <= 0.02, "validate-checkpoint: deviation over 0.02")
-    return win_launches, ln_launches
+    return win_launches, separate, ln_launches
+
+
+# ---------------------------------------------------------------------------
+# ANN path: the CLIP embedder, the fused embed lane, flat / IVF / HNSW, ket ann
+# ---------------------------------------------------------------------------
+
+
+def _f64_topk(corpus, queries, k: int, chunk: int = 131_072):
+    """Exact top-k by an f64 evaluation, chunk by chunk on the card, equal
+    scores lowest row first: -> (scores (Q, k) f64, rows (Q, k))."""
+    import numpy as np
+    import torch
+
+    q = queries.double()
+    cand_s, cand_r = [], []
+    for start in range(0, corpus.shape[0], chunk):
+        sims = q @ corpus[start:start + chunk].double().t()
+        s, r = torch.topk(sims, min(4 * k, sims.shape[1]), dim=1)
+        cand_s.append(s)
+        cand_r.append(r + start)
+    scores = torch.cat(cand_s, dim=1).cpu().numpy()
+    rows = torch.cat(cand_r, dim=1).cpu().numpy()
+    out_s, out_r = [], []
+    for s, r in zip(scores, rows):
+        order = np.lexsort((r, -s))[:k]
+        out_s.append(s[order])
+        out_r.append(r[order])
+    return np.stack(out_s), np.stack(out_r)
+
+
+def check_against_f64(got_rows, got_scores, want_scores, want_rows, what: str) -> tuple[int, int]:
+    """Device rows against the f64 evaluation, query by query. Entries whose
+    f64 scores lie within 1e-6 of the next form a group: a group of equal
+    scores (spread under 1e-9: exact duplicates) must come out as the f64
+    order has it, lowest row first; a group the f32 product cannot order
+    (spread 1e-9 to 1e-6) is held as a set, unless k cuts it. Returns (tie
+    groups, near-tie groups)."""
+    import numpy as np
+
+    ties = near = 0
+    for qi, (g, gs, ws, wr) in enumerate(zip(got_rows, got_scores, want_scores, want_rows)):
+        err = float(np.abs(gs - ws).max())
+        check(err <= 1e-5, f"{what} query {qi}: scores off the f64 ones by {err:.2e}")
+        lo = 0
+        while lo < len(wr):
+            hi = lo + 1
+            while hi < len(wr) and ws[hi - 1] - ws[hi] < 1e-6:
+                hi += 1
+            spread = ws[lo] - ws[hi - 1]
+            if hi - lo == 1 or spread < 1e-9:
+                ties += hi - lo > 1
+                check(list(g[lo:hi]) == list(wr[lo:hi]), f"{what} query {qi}: rows {list(g)} != f64 {list(wr)}")
+            else:
+                near += 1
+                check(hi == len(wr) or set(g[lo:hi]) == set(wr[lo:hi]), f"{what} query {qi}: near-tie set differs")
+            lo = hi
+    return ties, near
+
+
+def _profiled_busy(fn, wall_ms: float, runs: int = 5) -> str:
+    """Device time a call of ``fn`` by ``torch.profiler`` (the sum of its
+    kernels), beside ``wall_ms``, the CUDA-event time of a call: their
+    difference is the device's idle share, the host's enqueue time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            synchronize()
+        events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    except Exception as exc:  # noqa: BLE001 - a diagnostic: say why it is missing
+        return f"not measured ({type(exc).__name__}: {exc})"
+    busy = sum(e.self_device_time_total for e in events) / runs / 1e3
+    if busy <= 0:
+        return "not measured (the profiler recorded no device time)"
+    kernels = sum(e.count for e in events) / runs
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    return (f"{busy:.3f} ms of kernels a call ({kernels:.0f} device ops), idle share "
+            f"{max(0.0, 1 - busy / wall_ms):.3f} of the {wall_ms:.3f} ms; most time in "
+            + "; ".join(f"{e.key[:60]} {e.self_device_time_total / runs / 1e3:.3f} ms" for e in top))
+
+
+def ann_phase(work: Path, lib: Path, labels: Path) -> tuple[int, int]:
+    """The ANN slice on the card: the CLIP ViT-B/32 @ 224 embed forward,
+    an index run with ``index.enabled`` (fused embed lane) over the library,
+    flat search at 1M x 512 against an f64 evaluation, IVF at 1M, HNSW at
+    20 000, and ``ket ann`` through the CLI. Returns the attention launches
+    of the index run through the packed and the separate q, k, v entries
+    (the fast ViT tagger runs kernel 1 beside the embedder)."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.core.config.schema import IndexSettings, PipelineSettings, Settings, TaggerSettings
+    from kobato_eyes_tpu_torch.core.config.service import save_settings
+    from kobato_eyes_tpu_torch.core.pipeline import IndexPipeline, run_index_once
+    from kobato_eyes_tpu_torch.core.pipeline.embed_stage import load_embeddings
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.index import embedder as emb_mod
+    from kobato_eyes_tpu_torch.index.flat import FlatIndex, _search_kernel, find_similar, topk_rows
+    from kobato_eyes_tpu_torch.index.hnsw import HnswIndex
+    from kobato_eyes_tpu_torch.index.ivf import IvfFlatIndex, _ivf_search_kernel, recall_at_k
+    from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
+    from kobato_eyes_tpu_torch.models.vit import vit_forward_flops
+    from kobato_eyes_tpu_torch.ops import attention
+    from kobato_eyes_tpu_torch.utils.image_io import load_rgb_array
+    from kobato_eyes_tpu_torch.utils.metrics import metrics
+    from kobato_eyes_tpu_torch.utils.paths import get_app_paths
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: the exact index needs IEEE f32")
+    t_phase = time.perf_counter()
+
+    # 1. the embed forward: CLIP ViT-B/32 @ 224 (random weights, seed 0) on
+    # the 448 px letterbox pooled 2x2, batch 32, pixels resident
+    emb = emb_mod.ImageEmbedder(derive_from=448, device=DEVICE)
+    files = sorted(lib.iterdir())
+    batch = torch.from_numpy(emb.prepare_batch_from_rgb([load_rgb_array(p) for p in files[:BATCH]])).to(DEVICE)
+    ms = cuda_ms(lambda: emb.dispatch_batch_prepared(batch), iters=5)
+    cfg = emb.cfg
+    flops = vit_forward_flops(cfg, BATCH, with_head=False) + 2.0 * BATCH * cfg.hidden_dim * emb.embed_dim
+    print(f"ann embed forward clip-vit-b32-224 (hidden {cfg.hidden_dim}, depth {cfg.depth}, patch "
+          f"{cfg.patch_size}, {emb.embed_dim}-d, derived from 448) batch {BATCH}: {ms:.3f} ms "
+          f"(CUDA events, warm, mean of 5), {flops / 1e9:.1f} GFLOP, MFU {flops / (ms * 1e-3) / BF16_FLOPS_PER_S:.4f} "
+          f"against {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 ({flops / BF16_FLOPS_PER_S * 1e3:.3f} ms at peak)")
+    print(f"ann embed forward, device busy by torch.profiler: {_profiled_busy(lambda: emb.dispatch_batch_prepared(batch), ms)}")
+
+    # 2. an index run with index.enabled over the library, fused lane on:
+    # the embedder must read the tagger's device tensor (one upload a batch)
+    data = work / "data_ann"
+    paths = get_app_paths(data).ensure()
+    settings = Settings(
+        pipeline=PipelineSettings(roots=[lib], batch_size=BATCH, inline_signatures=False),
+        tagger=TaggerSettings(name="wd14", labels_path=labels),
+        index=IndexSettings(enabled=True),
+    )
+    cfg_path = work / "settings_ann.yaml"
+    save_settings(settings, cfg_path)
+    tagger = WD14Tagger(labels_path=labels, device=DEVICE)
+    seen: dict[str, list] = {"embed": [], "tag": []}
+
+    def spy(obj, key):
+        orig = obj.dispatch_batch_prepared
+
+        def record(pixels, *a, **kw):
+            seen[key].append(pixels)
+            return orig(pixels, *a, **kw)
+        return record
+
+    real_build = IndexPipeline._build_embedder
+
+    def build_spied(self):
+        built = real_build(self)
+        built.dispatch_batch_prepared = spy(built, "embed")
+        return built
+
+    tagger.dispatch_batch_prepared = spy(tagger, "tag")
+    IndexPipeline._build_embedder = build_spied
+    attention.launches = attention.launches_separate = 0
+    try:
+        t0 = time.perf_counter()
+        stats = run_index_once(paths.db_path, settings, tagger).__dict__
+        wall = time.perf_counter() - t0
+    finally:
+        IndexPipeline._build_embedder = real_build
+    launches, separate = attention.launches, attention.launches_separate
+    extra = stats["extra"]
+    print_index_stats("ann vit-b448 + clip", stats, wall, f"attention_launches={launches} separate_qkv={separate} "
+                      f"embedded_fused={extra.get('embedded_fused')} embedded={extra.get('embedded')}")
+    walls_ann = extra["stage_walls"]
+    print(f"ann index run: embedder setup wall {walls_ann.get('embed_setup')} s (seeded init of the CLIP "
+          f"tower, upload, the prep check), residual embed stage wall {walls_ann.get('embed')} s, "
+          f"{stats['tagged'] / stats['elapsed_sec']:.2f} images/s with the embed lane, "
+          f"{stats['tagged'] / (stats['elapsed_sec'] - walls_ann.get('embed_setup', 0.0)):.2f} without its setup")
+    check(extra.get("embedded_fused") == N_IMAGES and extra.get("embedded") == N_IMAGES,
+          f"fused embeddings {extra.get('embedded_fused')} / {extra.get('embedded')} != {N_IMAGES}: "
+          f"a fused batch was downgraded")
+    check(launches == 12 * (N_IMAGES // BATCH), f"attention launches {launches} in the ANN index run")
+    n_batches = N_IMAGES // BATCH
+    check(len(seen["embed"]) == len(seen["tag"]) == n_batches, f"dispatches {len(seen['embed'])} / {len(seen['tag'])}")
+    check(all(isinstance(e, torch.Tensor) and e.device.type == DEVICE and e is g
+              for e, g in zip(seen["embed"], seen["tag"])),
+          "the embedder did not read the tagger's device tensor (a second upload)")
+    print(f"ann fused lane: {n_batches} batches, each one device tensor read by the embedder and the tagger")
+    del seen, tagger
+
+    conn = bootstrap(paths.db_path)
+    try:
+        ids, vecs = load_embeddings(conn)
+        by_id = {int(r["id"]): r["path"] for r in conn.execute("SELECT id, path FROM files")}
+    finally:
+        conn.close()
+    check(vecs.shape == (N_IMAGES, 512) and bool(np.isfinite(vecs).all()), f"stored vectors {vecs.shape}")
+    want = np.concatenate([emb.embed_batch([load_rgb_array(by_id[int(i)]) for i in ids[s:s + BATCH]])
+                           for s in range(0, len(ids), BATCH)])
+    cos = np.sum(vecs * want, axis=1) / (np.linalg.norm(vecs, axis=1) * np.linalg.norm(want, axis=1))
+    print(f"ann stored vectors vs the standalone embedder: least cosine {cos.min():.6f} over {len(ids)} files; "
+          f"norms {np.linalg.norm(vecs, axis=1).min():.6f}..{np.linalg.norm(vecs, axis=1).max():.6f}")
+    check(cos.min() >= 0.999, f"stored vectors vs standalone: cosine {cos.min()}")
+
+    # 3. flat at 1M x 512: a seeded clustered corpus made on the card, with
+    # ANN_PLANTED rows copied four times each; half the queries are those rows
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    centers = torch.randn(ANN_CLUSTERS, ANN_DIM, generator=gen, device=DEVICE)
+    member = torch.randint(0, ANN_CLUSTERS, (ANN_N,), generator=gen, device=DEVICE)
+    corpus = centers[member] + 0.35 * torch.randn(ANN_N, ANN_DIM, generator=gen, device=DEVICE)
+    rng = np.random.default_rng(6)
+    sources = rng.choice(ANN_N, size=ANN_PLANTED, replace=False)
+    targets = rng.choice(np.setdiff1d(np.arange(ANN_N), sources), size=4 * ANN_PLANTED, replace=False)
+    corpus[torch.from_numpy(targets).to(DEVICE)] = corpus[torch.from_numpy(np.repeat(sources, 4)).to(DEVICE)]
+    queries = torch.cat([corpus[torch.from_numpy(sources).to(DEVICE)],
+                         centers[torch.randint(0, ANN_CLUSTERS, (ANN_QUERIES - ANN_PLANTED,), generator=gen,
+                                               device=DEVICE)]
+                         + 0.35 * torch.randn(ANN_QUERIES - ANN_PLANTED, ANN_DIM, generator=gen, device=DEVICE)])
+    vecs_np, q_np = corpus.cpu().numpy(), queries.cpu().numpy()
+    del corpus, centers, member, queries
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    flat = FlatIndex(vecs_np, device=DEVICE)
+    synchronize()
+    flat_build = time.perf_counter() - t0
+    flat_bytes = torch.cuda.memory_allocated() - base_bytes
+    scores, rows = flat.search(q_np, k=ANN_K)
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        flat.search(q_np, k=ANN_K)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    qn = q_np / np.linalg.norm(q_np, axis=1, keepdims=True)
+    q_dev = torch.from_numpy(qn).to(DEVICE)
+    with torch.inference_mode():
+        dev_ms = cuda_ms(lambda: _search_kernel(q_dev, flat._corpus_t, k=ANN_K), iters=20)
+        mm_ms = cuda_ms(lambda: torch.matmul(q_dev, flat._corpus_t), iters=20)
+        sims = torch.matmul(q_dev, flat._corpus_t)
+        topk_ms = cuda_ms(lambda: topk_rows(sims, ANN_K), iters=20)
+        del sims
+        want_s, want_r = _f64_topk(flat._corpus_t.t(), q_dev, ANN_K)
+    ties, near = check_against_f64(rows, scores, want_s, want_r, "flat 1M")
+    t_bytes = ANN_N * ANN_DIM * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * ANN_QUERIES * ANN_DIM * ANN_N / F32_FLOPS_PER_S * 1e3
+    print(f"ann flat {ANN_N}x{ANN_DIM} f32: build {flat_build:.3f} s (host normalize + upload), resident "
+          f"{flat_bytes / 1e9:.3f} GB; search of {ANN_QUERIES} queries k={ANN_K}: host p50 {np.median(walls):.3f} ms "
+          f"(min {min(walls):.3f}, max {max(walls):.3f}); device {dev_ms:.4f} ms (matmul {mm_ms:.4f}, tie-ordered "
+          f"top-k {topk_ms:.4f}); bound {max(t_bytes, t_ops):.4f} ms "
+          f"(bytes {t_bytes:.4f}, f32 operations {t_ops:.4f}); ids equal the f64 evaluation, {ties} exact-tie "
+          f"groups lowest row first, {near} near-tie groups held as sets")
+    check(ties >= ANN_PLANTED, f"only {ties} tie groups among {ANN_PLANTED} planted duplicate queries")
+    exact_rows = rows
+    del flat, q_dev
+    torch.cuda.empty_cache()
+
+    # 4. IVF at 1M: 1000 clusters, 10 Lloyd steps, nprobe 8, against flat
+    timers = ("ivf.upload", "ivf.train", "ivf.lists")
+    before = {n: metrics.percentiles(n)["total"] for n in timers}
+    t0 = time.perf_counter()
+    ivf = IvfFlatIndex(vecs_np, n_clusters=ANN_CLUSTERS, train_iters=IVF_ITERS, device=DEVICE)
+    synchronize()
+    ivf_build = time.perf_counter() - t0
+    split = {n: metrics.percentiles(n)["total"] - before[n] for n in timers}
+    ivf_bytes = torch.cuda.memory_allocated() - base_bytes
+    _, ivf_ids = ivf.search(q_np, k=ANN_K, nprobe=IVF_NPROBE)
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        ivf.search(q_np, k=ANN_K, nprobe=IVF_NPROBE)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    q_dev = torch.from_numpy(qn).to(DEVICE)
+    with torch.inference_mode():
+        ivf_ms = cuda_ms(lambda: _ivf_search_kernel(q_dev, ivf._centroids, ivf._assign_list, ivf._corpus,
+                                                    nprobe=IVF_NPROBE, k=ANN_K), iters=20)
+    recall = recall_at_k(ivf_ids, exact_rows, k=ANN_K)
+    print(f"ann ivf {ANN_N}x{ANN_DIM}, {ANN_CLUSTERS} clusters ({ivf.n_lists} lists), {IVF_ITERS} Lloyd steps: "
+          f"build {ivf_build:.3f} s = upload {split['ivf.upload']:.3f} + Lloyd steps {split['ivf.train']:.3f} "
+          f"+ list assembly {split['ivf.lists']:.3f} + host normalize and rest "
+          f"{ivf_build - sum(split.values()):.3f}; resident {ivf_bytes / 1e9:.3f} GB; search nprobe {IVF_NPROBE}: "
+          f"host p50 {np.median(walls):.3f} ms (min {min(walls):.3f}), device {ivf_ms:.4f} ms; "
+          f"recall@{ANN_K} against flat {recall:.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    check(recall >= 0.9, f"ivf recall@10 {recall} < 0.9")
+    del ivf, q_dev
+    torch.cuda.empty_cache()
+
+    # 5. HNSW at 20 000 x 512 on the host, against flat on the same rows
+    sub = vecs_np[:HNSW_N]
+    _, sub_exact = FlatIndex(sub, device=DEVICE).search(q_np, k=ANN_K)
+    t0 = time.perf_counter()
+    graph = HnswIndex(dim=ANN_DIM)
+    graph.add(sub)
+    hnsw_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, hnsw_ids = graph.search(q_np, k=ANN_K)
+    hnsw_ms = (time.perf_counter() - t0) * 1e3
+    recall = recall_at_k(hnsw_ids, sub_exact, k=ANN_K)
+    print(f"ann hnsw {HNSW_N}x{ANN_DIM} (host C++, M 16, ef_construction 200): build {hnsw_build:.3f} s; "
+          f"search of {ANN_QUERIES} queries (ef 64) {hnsw_ms:.3f} ms; recall@{ANN_K} against flat {recall:.4f}")
+    check(recall >= 0.9, f"hnsw recall@10 {recall} < 0.9")
+    del graph, vecs_np, sub
+
+    # 6. ket ann through the CLI on the index run's catalog
+    base = ["--config", str(cfg_path), "--data-dir", str(data), "--device", DEVICE]
+    flat = FlatIndex(vecs, ids, device=DEVICE)
+    for fid in (int(ids[0]), int(ids[len(ids) // 2]), int(ids[-1])):
+        lines = [line for line in run_cli(base + ["ann", "--similar-to", str(fid), "--limit", "5"]).splitlines() if line]
+        want = [f"{score:8.4f}  {by_id[f]}" for f, score in
+                find_similar(flat, vecs[list(ids).index(fid)], exclude_id=fid, k=5)]
+        check(lines == want, f"ann --similar-to {fid}: {lines} != find_similar {want}")
+    print("ann cli: --similar-to equals find_similar over load_embeddings for 3 files")
+    out = run_cli(base + ["ann", "--build"]).strip().splitlines()
+    check(out[-1].startswith(f"built ANN index (HnswIndex) over {N_IMAGES} images"), f"ann --build: {out[-1]}")
+    probe = files[7]
+    lines = [line for line in run_cli(base + ["ann", "--query-image", str(probe), "--limit", "5"]).splitlines() if line]
+    check(len(lines) == 5 and lines[0].split(None, 1)[1] == str(probe), f"ann --query-image {probe}: {lines}")
+    print(f"ann cli: --build then --query-image {probe.name}: the file first at {lines[0].split()[0]}")
+    print(f"ann phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, separate
 
 
 def main() -> int:
@@ -1787,23 +2170,26 @@ def main() -> int:
 
     t_start = time.perf_counter()
     build_kernels()
-    attn = attention_phase()
+    attn, attn_separate = attention_phase()
     window = window_attention_phase()
     ln = layernorm_residual_phase()
     hamming = pairwise_hamming_phase()
-    kernels = [attn, window, ln, hamming]
+    kernels = [attn, attn_separate, window, ln, hamming]
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_root))
     try:
         lib, labels, cfg = write_workspace(work)
-        attn["launches"] = slice_phase(work, lib, labels, cfg)
-        window["launches"], ln["launches"] = swin_phase(work, lib, labels, cfg)
+        attn["launches"], sep_vit = slice_phase(work, lib, labels, cfg)
+        window["launches"], sep_swin, ln["launches"] = swin_phase(work, lib, labels, cfg)
         query_cli_phase(work, lib, labels, cfg)
         hamming["launches"] = dup_scan_phase()
         dup_cli_phase(work)
         query_parity_phase(work)
         query_scale_phase()
+        ann_launches, sep_ann = ann_phase(work, lib, labels)
+        check(ann_launches == attn["launches"], "attention launches of the ANN index run")
+        attn_separate["launches"] = sep_vit + sep_swin + sep_ann
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")

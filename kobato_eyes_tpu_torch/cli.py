@@ -1,11 +1,13 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 Counterpart of ``kobato_eyes_tpu/cli.py`` for the commands ported so far:
-``index`` (scan + tag + write, with fused signatures), ``search`` over the
-device query engine (the default backend) or SQL, with CSV export and
-result copying, ``repl`` (queries against a resident epoch), ``dup``
-(duplicate scan, sweep, refinement, cohesion audit, export, trash) and
-``validate-checkpoint`` (import -> exact-vs-fast parity -> tag flips). The
+``index`` (scan + tag + write, with fused signatures and, with
+``index.enabled``, fused CLIP embeddings), ``search`` over the device query
+engine (the default backend) or SQL, with CSV export and result copying,
+``repl`` (queries against a resident epoch), ``dup`` (duplicate scan, sweep,
+refinement, cohesion audit, export, trash), ``ann`` (build / query the CLIP
+ANN index, find-similar over stored vectors) and ``validate-checkpoint``
+(import -> exact-vs-fast parity -> tag flips; the CLIP embedder's lane). The
 other commands (``serve``, ``retag``, ``refresh``, ...) come with later
 slices.
 
@@ -427,24 +429,151 @@ def cmd_validate_checkpoint(args) -> int:
     """Import -> strict manifest -> exact-vs-fast forward parity -> tag parity
     at production thresholds; exit 0 iff everything holds (models/validate.py)."""
     if args.arch == "clip":
-        print("validate-checkpoint --arch clip: the CLIP lane comes with the ANN slice "
-              "of the port", file=sys.stderr)
-        return 2
-    from kobato_eyes_tpu_torch.models.validate import validate_checkpoint
+        from kobato_eyes_tpu_torch.index.validate import validate_clip_checkpoint
 
-    report = validate_checkpoint(
-        args.checkpoint,
-        arch=args.arch,
-        preset=args.preset,
-        image_size=args.image_size,
-        classes=args.classes,
-        labels_path=args.labels,
-        n_images=args.images,
-        prob_tolerance=args.tolerance,
-        device=args.device,
-    )
+        report = validate_clip_checkpoint(
+            args.checkpoint,
+            preset=args.preset,
+            image_size=args.image_size,
+            patch_size=args.patch_size,
+            embed_dim=int(args.classes) if args.classes else 512,
+            clip_variant=args.clip_variant,
+            n_images=args.images,
+            device=args.device,
+        )
+    else:
+        from kobato_eyes_tpu_torch.models.validate import validate_checkpoint
+
+        report = validate_checkpoint(
+            args.checkpoint,
+            arch=args.arch,
+            preset=args.preset,
+            image_size=args.image_size,
+            classes=args.classes,
+            labels_path=args.labels,
+            n_images=args.images,
+            prob_tolerance=args.tolerance,
+            device=args.device,
+        )
     print(json.dumps(report, indent=2))
     return 0 if report["ok"] else 1
+
+
+def cmd_ann(args) -> int:
+    settings, db = _load_env(args)
+    import numpy as np
+
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.utils.image_io import load_rgb_array
+
+    paths = get_app_paths(args.data_dir or settings.data_dir).ensure()
+    graph_path = paths.index_dir / "clip.hnsw"
+    idx_cfg = settings.index
+
+    if args.similar_to is not None:
+        # find-similar by catalog id over STORED embeddings: no model needed
+        # (exact cosine search on the device)
+        from kobato_eyes_tpu_torch.core.pipeline.embed_stage import load_embedding, load_embeddings
+        from kobato_eyes_tpu_torch.index.flat import FlatIndex, find_similar
+
+        conn = bootstrap(db)
+        try:
+            qvec = load_embedding(conn, args.similar_to)
+            if qvec is None:
+                raise SystemExit(f"no embedding for file {args.similar_to}")
+            ids, vecs = load_embeddings(conn)
+            if len(ids) == 0:
+                raise SystemExit("catalog has no embeddings; enable index settings and re-index")
+            index = FlatIndex(vecs, ids, device=args.device)
+            for fid, score in find_similar(index, qvec, exclude_id=args.similar_to, k=args.limit):
+                r = conn.execute("SELECT path FROM files WHERE id = ?", (fid,)).fetchone()
+                print(f"{score:8.4f}  {r['path'] if r else fid}")
+        finally:
+            conn.close()
+        return 0
+
+    # Probe/backfill embeddings must use the prep geometry the catalog's
+    # stored vectors were computed with (fused index runs record it in the
+    # meta table): a plain-prep probe against derived-prep vectors would
+    # search a different embedding space.
+    from kobato_eyes_tpu_torch.index.embedder import embedder_from_catalog
+
+    conn = bootstrap(db)
+    try:
+        embedder = embedder_from_catalog(
+            conn,
+            preset=idx_cfg.preset, image_size=idx_cfg.image_size,
+            patch_size=idx_cfg.patch_size, embed_dim=idx_cfg.embed_dim,
+            checkpoint_path=idx_cfg.checkpoint, device=args.device,
+        )
+    finally:
+        conn.close()
+
+    if args.build:
+        from kobato_eyes_tpu_torch.core.pipeline.embed_stage import load_embeddings
+        from kobato_eyes_tpu_torch.index.auto import build_auto_index, save_auto_index
+
+        conn = bootstrap(db)
+        try:
+            # prefer embeddings persisted by the index run (index.enabled)
+            stored_ids, stored_vecs = load_embeddings(conn)
+            rows = conn.execute(
+                "SELECT id, path FROM files WHERE is_present = 1 ORDER BY id"
+            ).fetchall()
+        finally:
+            conn.close()
+        all_vecs: list[np.ndarray] = []
+        all_ids: list[np.ndarray] = []
+        if len(stored_ids) and stored_vecs.shape[1] == embedder.embed_dim:
+            all_vecs.append(np.asarray(stored_vecs, np.float32))
+            all_ids.append(np.asarray(stored_ids, np.int64))
+            done = set(stored_ids.tolist())
+            rows = [r for r in rows if int(r["id"]) not in done]
+            print(f"{len(stored_ids)} stored embeddings loaded", file=sys.stderr)
+        batch: list = []
+        ids: list[int] = []
+        for r in rows:
+            arr = load_rgb_array(r["path"])
+            if arr is None:
+                continue
+            batch.append(arr)
+            ids.append(int(r["id"]))
+            if len(batch) >= settings.pipeline.batch_size:
+                all_vecs.append(np.asarray(embedder.embed_batch(batch)))
+                all_ids.append(np.array(ids[-len(batch):], np.int64))
+                batch.clear()
+        if batch:
+            all_vecs.append(np.asarray(embedder.embed_batch(batch)))
+            all_ids.append(np.array(ids[-len(batch):], np.int64))
+        vecs = np.concatenate(all_vecs) if all_vecs else np.zeros((0, embedder.embed_dim), np.float32)
+        fids = np.concatenate(all_ids) if all_ids else np.zeros(0, np.int64)
+        # corpus-size routing: HNSW graph below KET_ANN_HNSW_MAX (default
+        # 300k), device flat/IVF above it
+        index = build_auto_index(vecs, fids, device=args.device)
+        save_auto_index(index, graph_path)
+        print(f"built ANN index ({type(index).__name__}) over {len(index)} images -> {graph_path}")
+        return 0
+
+    if args.query_image:
+        from kobato_eyes_tpu_torch.index.auto import load_auto_index
+
+        arr = load_rgb_array(args.query_image)
+        if arr is None:
+            raise SystemExit(f"cannot decode {args.query_image}")
+        index = load_auto_index(graph_path, dim=embedder.embed_dim, device=args.device)
+        vec = embedder.embed_batch([arr])
+        scores, ids = index.search(vec, k=args.limit)
+        conn = bootstrap(db)
+        try:
+            for score, fid in zip(scores[0], ids[0]):
+                if fid < 0:
+                    continue
+                row = conn.execute("SELECT path FROM files WHERE id=?", (int(fid),)).fetchone()
+                print(f"{score:7.4f}  {row['path'] if row else fid}")
+        finally:
+            conn.close()
+        return 0
+    raise SystemExit("ann: pass --build or --query-image")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -452,7 +581,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", help="settings.yaml path")
     parser.add_argument("--data-dir", help="data directory override")
     parser.add_argument("--device", default="cuda",
-                        help="torch device for the tagger, signatures, the dup scan and the query epoch "
+                        help="torch device for the tagger, signatures, the dup scan, the query epoch "
+                             "and the ANN embedder and indexes "
                              "(default cuda; 'cpu' to run without a GPU)")
     parser.add_argument("-v", "--verbose", action="store_true")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -509,7 +639,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preset", default="base")
     p.add_argument("--image-size", type=int, default=448)
     p.add_argument("--classes", type=int, default=None,
-                   help="label count when --labels is not given")
+                   help="label count when --labels is not given (embed dim for --arch clip)")
     p.add_argument("--labels", default=None, help="label CSV path")
     p.add_argument("--images", type=int, default=8,
                    help="synthetic validation images to run")
@@ -518,8 +648,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clip-variant", choices=["openai", "open_clip"],
                    default="openai", help="tower convention for --arch clip")
     p.add_argument("--patch-size", type=int, default=32,
-                   help="ViT patch size for --arch clip")
+                   help="ViT patch size for --arch clip (32 for ViT-B/32, 16 for ViT-B/16)")
     p.set_defaults(fn=cmd_validate_checkpoint)
+
+    p = sub.add_parser("ann", help="build / query the CLIP ANN index")
+    p.add_argument("--build", action="store_true")
+    p.add_argument("--query-image")
+    p.add_argument("--similar-to", type=int, metavar="FILE_ID",
+                   help="find-similar over stored embeddings (no model load)")
+    p.add_argument("--limit", type=int, default=10)
+    p.set_defaults(fn=cmd_ann)
     return parser
 
 

@@ -1,4 +1,4 @@
-"""Index pipeline orchestrator: Scan -> Tag -> Write.
+"""Index pipeline orchestrator: Scan -> Tag -> Write -> Embed -> Epoch swap.
 
 Counterpart of ``kobato_eyes_tpu/core/pipeline/orchestrator.py``. Stage
 overrides allow tests (and retag flows) to inject fakes, mirroring
@@ -9,13 +9,15 @@ fuses pHash/dHash into its decode and dispatch for every tagged file that
 lacks a signature row; the hash pass runs on the tagger's device, or on
 ``device`` for a tagger without one (the dummy).
 
+With ``settings.index.enabled`` every file that lacks a current vector gets
+a CLIP embedding: fused into the tag stage's upload when the embedder's
+derived prep is the tagger's geometry (``index.fused``), else, and for
+whatever the fused lane did not cover, by the residual embed stage. The
+embedder runs on the tagger's device, or on ``device``.
+
 After the write phase an ``epoch_manager`` (``query.engine.EpochManager``)
 gets the device query epoch swapped: a full build on the first run, a delta
 over the files whose catalog rows moved after that.
-
-What the JAX package runs beyond that comes with a later slice of the port:
-the ANN embed lane (``settings.index.enabled``) logs one warning and is
-skipped.
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ class IndexPipeline:
         self._settings = settings
         self._tagger = tagger
         self._epochs = epoch_manager
-        # where the fused hash pass runs: the tagger's device, else ``device``
+        # where the fused hash pass and the embedder run: the tagger's
+        # device, else ``device``
         tagger_device = getattr(tagger, "device", None)
         self._device = tagger_device if tagger_device is not None else device
         self._progress = ProgressEmitter(progress)
@@ -95,10 +98,36 @@ class IndexPipeline:
     def tagger_sig(self) -> str:
         return self._tagger_sig
 
+    def _build_embedder(self):
+        """Index-side embedder; derived prep when the tagger geometry allows
+        fusion (index.fused). Query-side code must instead use
+        ``index.embedder.embedder_from_catalog`` so probe images get the
+        prep the stored vectors were computed with."""
+        from kobato_eyes_tpu_torch.index.embedder import ImageEmbedder
+
+        idx = self._settings.index
+        derive = None
+        if idx.fused:
+            spec = getattr(self._tagger, "spec", None)
+            size = int(getattr(self._tagger, "input_size", 0) or 0)
+            if (
+                spec is not None
+                and getattr(spec, "mode", None) == "wd14"
+                and size >= idx.image_size
+                and size % idx.image_size == 0
+            ):
+                derive = size
+        return ImageEmbedder(
+            preset=idx.preset, image_size=idx.image_size,
+            patch_size=idx.patch_size, embed_dim=idx.embed_dim,
+            checkpoint_path=idx.checkpoint, derive_from=derive, device=self._device,
+        )
+
     def run(self) -> IndexStats:
         t0 = time.perf_counter()
         stats = IndexStats()
-        # per-stage walls so an index run is attributable line by line
+        # per-stage walls (scan/embed_setup/tag_write/embed/epoch) so an index run is
+        # attributable line by line
         walls: dict[str, float] = {}
         stats.extra["stage_walls"] = walls
         conn = bootstrap(self._db_path)
@@ -122,11 +151,37 @@ class IndexPipeline:
             conn.close()
         walls["scan"] = round(time.perf_counter() - t0, 3)
 
-        if self._settings.index.enabled:
-            logger.warning(
-                "index.enabled: the ANN embed lane comes with the ANN slice of "
-                "the port; no vectors are computed"
-            )
+        # EMBED SETUP — before tagging, so vectors fuse into tag dispatches.
+        # When the embedder's derived prep matches the tagger's prepared
+        # geometry (wd14 letterbox, integer multiple of image_size), the tag
+        # stage chains the embedding forward onto the SAME device pixels:
+        # one decode, one upload per batch. The residual embed stage below
+        # covers records needing vectors but not tagging.
+        embedder = None
+        embed_need: set[int] = set()
+        t_stage = time.perf_counter()
+        if self._settings.index.enabled and not self._is_cancelled():
+            from kobato_eyes_tpu_torch.core.pipeline.embed_stage import missing_embedding_records
+            from kobato_eyes_tpu_torch.db.repository import ensure_embed_prep
+
+            embedder = self._build_embedder()
+            conn = bootstrap(self._db_path)
+            try:
+                if ensure_embed_prep(conn, embedder.model_key, embedder.prep_key):
+                    logger.info(
+                        "embedding prep changed to %s; stored vectors invalidated",
+                        embedder.prep_key,
+                    )
+                embed_need = {
+                    r.file_id
+                    for r in missing_embedding_records(
+                        conn, scan.records,
+                        model=embedder.model_key, expected_dim=embedder.embed_dim,
+                    )
+                }
+            finally:
+                conn.close()
+            walls["embed_setup"] = round(time.perf_counter() - t_stage, 3)
 
         # SIG SETUP — files being tagged that lack duplicate signatures get
         # pHash/dHash fused into the same decode + dispatch (the words ride
@@ -173,6 +228,8 @@ class IndexPipeline:
                         input_cache_dir=cache_dir,
                         is_cancelled=self._is_cancelled,
                         pipeline_depth=self._settings.pipeline.pipeline_depth,
+                        embedder=embedder,
+                        embed_need=embed_need,
                         sig_need=sig_need,
                         sig_device=sig_device,
                     ).run(scan.records, writer, self._progress)
@@ -188,6 +245,27 @@ class IndexPipeline:
         # decode/prepare/queue time the in-flight window could not hide
         stats.extra["tag_infer_s"] = round(tag_result.infer_seconds, 3)
         stats.extra["signatures_fused"] = tag_result.signed
+
+        # EMBED residual: whatever the fused tag+embed lane did not cover —
+        # records needing a vector but not tagging, or batches the fusion
+        # downgraded on failure.
+        t_stage = time.perf_counter()
+        if embedder is not None and not self._is_cancelled():
+            from kobato_eyes_tpu_torch.core.pipeline.embed_stage import EmbedStage
+
+            conn = bootstrap(self._db_path)
+            try:
+                embed_result = EmbedStage(
+                    embedder,
+                    batch_size=self._settings.pipeline.batch_size,
+                    io_workers=self._settings.pipeline.io_workers,
+                    is_cancelled=self._is_cancelled,
+                ).run(conn, scan.records, self._progress)
+                stats.extra["embedded_fused"] = tag_result.embedded
+                stats.extra["embedded"] = embed_result.embedded + tag_result.embedded
+            finally:
+                conn.close()
+            walls["embed"] = round(time.perf_counter() - t_stage, 3)
 
         # EPOCH swap (the reference's offline FTS rebuild, device edition).
         # Incremental when an epoch is already live: only tagged + vanished
@@ -229,8 +307,8 @@ def run_index_once(
     device=None,
 ) -> IndexStats:
     """Headless single-pass API (reference run_index_once). ``device`` places
-    the fused signature pass when the tagger has no device of its own; the
-    epoch swap runs on the ``epoch_manager``'s own device."""
+    the fused signature pass and the embedder when the tagger has no device
+    of its own; the epoch swap runs on the ``epoch_manager``'s own device."""
     return IndexPipeline(
         db_path, settings, tagger,
         epoch_manager=epoch_manager, progress=progress, is_cancelled=is_cancelled,

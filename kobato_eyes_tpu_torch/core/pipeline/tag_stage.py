@@ -9,11 +9,14 @@ behaviors from the reference (``core/pipeline/stages/tag_stage.py``):
 * duplicate tag names within one result keep the max score (:283-292);
 * emits WriteItems to the async writer and flips record state.
 
-The pHash/dHash words of files in ``sig_need`` are computed from the same
-decode: the loader makes the grayscale hash tiles, this stage queues the
-hash pass on ``sig_device`` beside the batch's dispatch, and the words ride
-the WriteItems. The JAX package also fuses the ANN embedding forward; that
-lane comes with the ANN slice of the port.
+Two lanes ride the same decode. The pHash/dHash words of files in
+``sig_need``: the loader makes the grayscale hash tiles, this stage queues
+the hash pass on ``sig_device`` beside the batch's dispatch, and the words
+ride the WriteItems. The ANN vectors of files in ``embed_need``: a batch
+that needs them is uploaded ONCE (from pinned memory on the card) and the
+same device tensor goes to the embedder and to the tagger; the vectors ride
+the WriteItems. A failed fused dispatch or completion downgrades the batch
+to tags-only, and the orchestrator's residual embed stage covers it.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ class TagStageResult:
     batches: int = 0
     failed_ids: list[int] = field(default_factory=list)
     signed: int = 0  # pHash/dHash signatures fused into tag dispatches
+    embedded: int = 0  # ANN vectors fused into tag dispatches
 
 
 class TagStage:
@@ -61,6 +65,8 @@ class TagStage:
         input_cache_dir: str | None = None,
         is_cancelled: Callable[[], bool] | None = None,
         pipeline_depth: int = 3,
+        embedder=None,  # index.embedder.ImageEmbedder in derived-prep mode
+        embed_need: set[int] | None = None,
         sig_need: set[int] | None = None,
         sig_device=None,
     ) -> None:
@@ -72,6 +78,8 @@ class TagStage:
         self._input_cache_dir = input_cache_dir
         self._is_cancelled = is_cancelled or (lambda: False)
         self._pipeline_depth = max(1, int(pipeline_depth))
+        self._embedder = embedder
+        self._embed_need = embed_need or set()
         # Fused signatures (tag+sig): files whose pHash/dHash should be
         # computed from the tag stage's decode — the loader produces the
         # grayscale hash tiles, this stage chains the hash pass onto the
@@ -123,6 +131,17 @@ class TagStage:
             and hasattr(self._tagger, "dispatch_batch_prepared")
             and hasattr(self._tagger, "complete_batch_prepared")
         )
+        # Fused embedding: when the embedder's derived prep IS the tagger's
+        # prepared geometry, the batch is uploaded once and BOTH forwards
+        # read the same device pixels: no second decode, no second upload.
+        spec = getattr(self._tagger, "spec", None)
+        can_fuse = (
+            can_pipeline
+            and self._embedder is not None
+            and bool(self._embed_need)
+            and spec is not None
+            and self._embedder.accepts_prepared(self._tagger.input_size, spec.mode)
+        )
         inflight: deque = deque()
         done = 0
         for batch in loader:
@@ -134,8 +153,20 @@ class TagStage:
                 progress.emit(IndexProgress(IndexPhase.TAG, done, len(todo)))
                 continue
             t0 = time.perf_counter()
+            pixels = batch.pixels
+            emb_pending = None
+            if can_fuse and any(r.file_id in self._embed_need for r in batch.records):
+                try:
+                    pixels = self._upload(batch.pixels)
+                    emb_pending = self._embedder.dispatch_batch_prepared(pixels)
+                except Exception:  # noqa: BLE001 — the residual embed stage covers
+                    logger.warning(
+                        "fused embed dispatch failed; batch downgraded to tags-only",
+                        exc_info=True,
+                    )
+                    pixels, emb_pending = batch.pixels, None
             try:
-                handle = self._tagger.dispatch_batch_prepared(batch.pixels)
+                handle = self._tagger.dispatch_batch_prepared(pixels)
             except Exception:  # noqa: BLE001 — shape/launch errors
                 logger.warning("dispatch failed; falling back to sync retry", exc_info=True)
                 self._infer_with_retry(batch, sink, result)
@@ -144,7 +175,7 @@ class TagStage:
                 continue
             result.infer_seconds += time.perf_counter() - t0
             sig_pending = self._sig_dispatch(batch)
-            inflight.append((batch, handle, sig_pending))
+            inflight.append((batch, handle, emb_pending, sig_pending))
             if len(inflight) >= self._pipeline_depth:
                 done += self._complete_pipelined(*inflight.popleft(), sink=sink, result=result)
                 progress.emit(IndexProgress(IndexPhase.TAG, done, len(todo)))
@@ -162,6 +193,17 @@ class TagStage:
             result.infer_seconds, result.batches,
         )
         return result
+
+    def _upload(self, pixels: np.ndarray):
+        """The batch on the embedder's device, copied once: from pinned host
+        memory without blocking on the card, as it is on the CPU."""
+        import torch
+
+        host = torch.from_numpy(np.ascontiguousarray(pixels))
+        device = self._embedder.device
+        if device.type == "cuda":
+            return host.pin_memory().to(device, non_blocking=True)
+        return host.to(device)
 
     def _sig_dispatch(self, batch: PreparedBatch):
         """Queue the pHash/dHash pass for the batch's hash tiles (fused
@@ -194,8 +236,8 @@ class TagStage:
             return {}
 
     def _complete_pipelined(
-        self, batch: PreparedBatch, handle: tuple, sig_pending=None, *,
-        sink: WriteSink, result: TagStageResult,
+        self, batch: PreparedBatch, handle: tuple, emb_pending=None,
+        sig_pending=None, *, sink: WriteSink, result: TagStageResult,
     ) -> int:
         """Fetch one in-flight batch; device failures re-run it through the
         synchronous halving retry (same terminal behavior as the sync path)."""
@@ -211,14 +253,34 @@ class TagStage:
             )
             self._infer_with_retry(batch, sink, result)
             return len(batch.records)
+        vecs = model_key = None
+        if emb_pending is not None:
+            try:
+                t0 = time.perf_counter()
+                vecs = self._embedder.complete_batch_prepared(emb_pending)
+                result.infer_seconds += time.perf_counter() - t0
+                model_key = self._embedder.model_key
+            except Exception:  # noqa: BLE001 — the residual embed stage covers
+                logger.warning(
+                    "fused embed completion failed; batch downgraded to tags-only",
+                    exc_info=True,
+                )
+                vecs = None
         sigs = self._sig_complete(sig_pending)
         now = time.time()
         for i, (record, output) in enumerate(zip(batch.records, outputs)):
+            emb = None
+            if vecs is not None and record.file_id in self._embed_need:
+                emb = np.asarray(vecs[i], np.float32)
+                record.embedded = True
+                result.embedded += 1
             sig = sigs.get(i)
             if sig is not None:
                 record.signed = True
                 result.signed += 1
-            sink.put(self._to_write_item(record, output, now, sig=sig))
+            sink.put(self._to_write_item(
+                record, output, now, embedding=emb, embed_model=model_key, sig=sig,
+            ))
             record.tagged = True
             result.tagged += 1
         return len(batch.records)
@@ -267,6 +329,7 @@ class TagStage:
 
     def _to_write_item(
         self, record: FileRecord, output: TagResult, now: float,
+        embedding: np.ndarray | None = None, embed_model: str | None = None,
         sig: tuple[int, int] | None = None,
     ) -> WriteItem:
         # Duplicate names keep the max score (reference tag_stage.py:283-292).
@@ -282,6 +345,8 @@ class TagStage:
             height=record.height,
             tagger_sig=self._tagger_sig,
             tagged_at=now,
+            embedding=embedding,
+            embed_model=embed_model if embedding is not None else None,
             phash=sig[0] if sig is not None else None,
             dhash=sig[1] if sig is not None else None,
         )

@@ -1,21 +1,25 @@
-"""Carry ViT and SwinV2 weights into the port's models.
+"""Carry ViT, SwinV2 and CLIP weights into the port's models.
 
 The port's ``models/vit.ViT`` and ``models/swin.SwinV2`` use timm's parameter
 names, so weights arrive two ways:
 
-* ``vit_state_from_jax_params`` / ``swin_state_from_jax_params`` turn the JAX
-  package's flax tree (as numpy, the layout of its ``init_params`` /
-  ``init_swin_params``) into the port's state dict. Each is the exact
+* ``vit_state_from_jax_params`` / ``swin_state_from_jax_params`` /
+  ``clip_state_from_jax_params`` turn the JAX package's flax tree (as numpy,
+  the layout of its ``init_params`` / ``init_swin_params`` / the embedder's
+  ``{"vit", "proj"}`` tree) into the port's state dict. Each is the exact
   inverse of the JAX package's ``*_params_from_torch_state``, so one set of
   weights runs in both.
 * ``vit_params_from_torch_state`` / ``swin_params_from_torch_state`` check a
-  timm state dict against the config and return it as the port's state dict.
+  timm state dict against the config and return it as the port's state dict;
+  ``clip_vit_params_from_torch_state`` turns an OpenAI / open_clip visual
+  tower into the state dict of ``index/embedder.ClipImageEncoder`` (the
+  timm-named ViT under ``vit.`` plus a bias-free ``proj``).
 
 ``import_torch_checkpoint`` reads a ``.pt``/``.pth`` or ``.safetensors``
 file, validates it strictly against the config's key/shape manifest
-(``StateDictMismatch`` names every drifted key) and converts it. The CLIP
-importer comes with the ANN slice, ``.onnx`` files with the ONNX import
-slice and orbax directories with the checkpoint IO slice.
+(``StateDictMismatch`` names every drifted key) and converts it. ``.onnx``
+files come with the ONNX import slice and orbax directories with the
+checkpoint IO slice.
 """
 
 from __future__ import annotations
@@ -90,6 +94,14 @@ def vit_state_from_jax_params(params: Mapping[str, Any], cfg: ViTConfig) -> dict
     return state
 
 
+def clip_state_from_jax_params(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, torch.Tensor]:
+    """flax tree of the JAX ``ClipImageEncoder`` (``{"vit": ..., "proj":
+    {"kernel"}}``) -> the state dict of the port's ``ClipImageEncoder``."""
+    state = {f"vit.{k}": v for k, v in vit_state_from_jax_params(params["vit"], cfg).items()}
+    state["proj.weight"] = _tensor(_np(params["proj"]["kernel"]).T)
+    return state
+
+
 def vit_params_from_torch_state(
     state: Mapping[str, Any], cfg: ViTConfig
 ) -> dict[str, torch.Tensor]:
@@ -129,6 +141,69 @@ def vit_params_from_torch_state(
         if tuple(arr.shape) != want:
             raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {want}")
         out[key] = _tensor(arr)
+    return out
+
+
+def clip_vit_params_from_torch_state(
+    state: Mapping[str, Any], cfg: ViTConfig
+) -> dict[str, torch.Tensor]:
+    """OpenAI/open_clip CLIP *visual tower* state dict -> the state dict of
+    ``index/embedder.ClipImageEncoder`` (timm names under ``vit.``, ``proj``).
+
+    Accepts keys with or without the ``visual.`` prefix (a full CLIP state
+    dict or an extracted tower). Expected naming (OpenAI CLIP / open_clip):
+      conv1.weight (no bias), class_embedding, positional_embedding,
+      ln_pre.{weight,bias},
+      transformer.resblocks.N.{ln_1,ln_2}.{weight,bias},
+      transformer.resblocks.N.attn.{in_proj_weight,in_proj_bias,
+                                     out_proj.weight,out_proj.bias},
+      transformer.resblocks.N.mlp.{c_fc,c_proj}.{weight,bias},
+      ln_post.{weight,bias}, proj
+
+    cfg must be built with ``ln_pre=True, patch_bias=False`` and
+    ``act="quick_gelu"`` for OpenAI checkpoints (open_clip LAION models use
+    plain GELU). ``in_proj_weight`` stacks q, k, v with the heads contiguous,
+    the row order of timm's ``attn.qkv.weight``, so it carries over as it is.
+    """
+    d = cfg.hidden_dim
+    prefix = "visual." if any(k.startswith("visual.") for k in state) else ""
+
+    def get(key: str) -> np.ndarray:
+        full = prefix + key
+        if full not in state:
+            raise KeyError(f"missing weight {full!r}")
+        return _np(state[full]).astype(np.float32)
+
+    pos = get("positional_embedding")  # (T, D)
+    want_tokens = cfg.num_patches + 1
+    if pos.shape[0] != want_tokens:
+        raise ValueError(
+            f"positional_embedding has {pos.shape[0]} tokens, model expects "
+            f"{want_tokens} (interpolation not implemented)"
+        )
+    out: dict[str, torch.Tensor] = {
+        "vit.patch_embed.proj.weight": _tensor(get("conv1.weight")),  # (D, 3, P, P)
+        "vit.cls_token": _tensor(get("class_embedding").reshape(1, 1, d)),
+        "vit.pos_embed": _tensor(pos[None]),
+        "vit.norm_pre.weight": _tensor(get("ln_pre.weight")),
+        "vit.norm_pre.bias": _tensor(get("ln_pre.bias")),
+    }
+    names = (
+        ("norm1", "ln_1"), ("attn.qkv", "attn.in_proj"), ("attn.proj", "attn.out_proj"),
+        ("norm2", "ln_2"), ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj"),
+    )
+    for i in range(cfg.depth):
+        for ours, theirs in names:
+            src = f"transformer.resblocks.{i}.{theirs}"
+            if theirs == "attn.in_proj":
+                weight, bias = get(src + "_weight"), get(src + "_bias")
+            else:
+                weight, bias = get(src + ".weight"), get(src + ".bias")
+            out[f"vit.blocks.{i}.{ours}.weight"] = _tensor(weight)
+            out[f"vit.blocks.{i}.{ours}.bias"] = _tensor(bias)
+    out["vit.norm.weight"] = _tensor(get("ln_post.weight"))
+    out["vit.norm.bias"] = _tensor(get("ln_post.bias"))
+    out["proj.weight"] = _tensor(get("proj").T)  # (D, E) -> Linear's (E, D)
     return out
 
 
@@ -335,6 +410,40 @@ def vit_state_manifest(cfg: ViTConfig, *, head: bool = True) -> dict[str, tuple[
     return m
 
 
+def clip_vit_state_manifest(
+    cfg: ViTConfig, *, embed_out: int = 512, prefix: str = "visual."
+) -> dict[str, tuple[int, ...]]:
+    """Expected OpenAI/open_clip CLIP visual-tower keys -> shapes for ``cfg``."""
+    d, p = cfg.hidden_dim, cfg.patch_size
+    mlp = cfg.mlp_dim
+    tokens = cfg.num_patches + 1
+    m: dict[str, tuple[int, ...]] = {
+        prefix + "conv1.weight": (d, 3, p, p),
+        prefix + "class_embedding": (d,),
+        prefix + "positional_embedding": (tokens, d),
+        prefix + "ln_pre.weight": (d,),
+        prefix + "ln_pre.bias": (d,),
+        prefix + "ln_post.weight": (d,),
+        prefix + "ln_post.bias": (d,),
+        prefix + "proj": (d, embed_out),
+    }
+    for i in range(cfg.depth):
+        pre = f"{prefix}transformer.resblocks.{i}."
+        m[pre + "ln_1.weight"] = (d,)
+        m[pre + "ln_1.bias"] = (d,)
+        m[pre + "attn.in_proj_weight"] = (3 * d, d)
+        m[pre + "attn.in_proj_bias"] = (3 * d,)
+        m[pre + "attn.out_proj.weight"] = (d, d)
+        m[pre + "attn.out_proj.bias"] = (d,)
+        m[pre + "ln_2.weight"] = (d,)
+        m[pre + "ln_2.bias"] = (d,)
+        m[pre + "mlp.c_fc.weight"] = (mlp, d)
+        m[pre + "mlp.c_fc.bias"] = (mlp,)
+        m[pre + "mlp.c_proj.weight"] = (d, mlp)
+        m[pre + "mlp.c_proj.bias"] = (d,)
+    return m
+
+
 class StateDictMismatch(ValueError):
     """Importer/checkpoint naming drift, with the offending keys named."""
 
@@ -397,7 +506,8 @@ def import_torch_checkpoint(
     path: str | Path, cfg: ViTConfig | SwinConfig, *, strict: bool = True
 ) -> dict[str, torch.Tensor]:
     """Load a ``.pt``/``.pth`` or ``.safetensors`` state dict and convert it to
-    the port's state dict for ``cfg``. ``strict`` validates it against the
+    the port's state dict for ``cfg`` (a CLIP visual tower, recognised by its
+    names, to ``index/embedder.ClipImageEncoder``'s). ``strict`` validates it against the
     config's manifest first, so drift fails with every offending key named."""
     state = load_state_file(path)
     if isinstance(cfg, SwinConfig):
@@ -405,8 +515,20 @@ def import_torch_checkpoint(
             style = "fc" if "head.fc.weight" in state or "head.fc.bias" in state else "flat"
             validate_state_against_manifest(state, swin_state_manifest(cfg, head_style=style), name=str(path))
         return swin_params_from_torch_state(state, cfg)
+    # ViT: dispatch on the naming family — CLIP visual tower (conv1 /
+    # transformer.resblocks) vs timm VisionTransformer (patch_embed / blocks)
     if any(k.endswith("conv1.weight") or ".resblocks." in k for k in state):
-        raise NotImplementedError("CLIP visual towers come with the ANN slice of the port")
+        if strict:
+            prefix = "visual." if any(k.startswith("visual.") for k in state) else ""
+            proj = state.get(prefix + "proj")
+            embed_out = int(_np(proj).shape[1]) if proj is not None else 512
+            # a full CLIP state dict also carries the text tower; validate
+            # the visual keys only (the importer reads only those)
+            visual = {k: v for k, v in state.items() if not prefix or k.startswith(prefix)}
+            validate_state_against_manifest(
+                visual, clip_vit_state_manifest(cfg, embed_out=embed_out, prefix=prefix), name=str(path)
+            )
+        return clip_vit_params_from_torch_state(state, cfg)
     if strict:
         has_head = "head.weight" in state or "head.bias" in state
         validate_state_against_manifest(state, vit_state_manifest(cfg, head=has_head), name=str(path))

@@ -104,9 +104,10 @@ def prepare_batch(images: list[np.ndarray], spec: PreprocessSpec) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def normalize_on_device(batch_u8: torch.Tensor, spec: PreprocessSpec) -> torch.Tensor:
-    """(B, H, W, 3) uint8 -> float32 NHWC in the model's expected convention."""
-    x = batch_u8.to(torch.float32)
+def normalize_on_device(batch: torch.Tensor, spec: PreprocessSpec) -> torch.Tensor:
+    """(B, H, W, 3) uint8 (or the embedder's mean-pooled float32 0..255)
+    -> float32 NHWC in the model's expected convention."""
+    x = batch.to(torch.float32)
     if spec.mode == "wd14":
         return x.flip(-1)  # RGB -> BGR, keep 0..255 un-normalized
     if spec.mode == "pixai":

@@ -263,10 +263,14 @@ class TorchTagger:
 
     # -- device forward ---------------------------------------------------
 
-    def forward_probs(self, batch_u8: np.ndarray) -> torch.Tensor:
+    def forward_probs(self, batch_u8: np.ndarray | torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) uint8 -> (B, C) f32 probabilities on the device,
-        queued without waiting for the device."""
-        batch = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
+        queued without waiting for the device. A tensor already on the
+        device (the fused tag+embed lane's one upload) is used as it is."""
+        if isinstance(batch_u8, torch.Tensor):
+            batch = batch_u8.to(self.device)
+        else:
+            batch = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
         with torch.inference_mode():
             x = normalize_on_device(batch, self.spec)
             return probs_from_logits(self._model(x))
@@ -335,7 +339,7 @@ class TorchTagger:
 
     def dispatch_batch_prepared(
         self,
-        batch: np.ndarray,
+        batch: np.ndarray | torch.Tensor,
         *,
         thresholds: ThresholdMap | None = None,
         max_tags: MaxTagsMap | None = None,

@@ -13,9 +13,9 @@ cannot:
    thresholds?
 
 Lanes: ``swinv2`` and ``vit`` (WD14 class) and ``pixai`` (ViT backbone,
-preprocess.json discovery, ips propagation probe). The ``clip`` lane comes
-with the ANN slice, orbax directories with the checkpoint IO slice and
-``.onnx`` files with the ONNX import slice. ``cli.cmd_validate_checkpoint``
+preprocess.json discovery, ips propagation probe); the ``clip`` lane is
+``index/validate.py``. Orbax directories come with the checkpoint IO slice
+and ``.onnx`` files with the ONNX import slice. ``cli.cmd_validate_checkpoint``
 is the thin shell.
 """
 
@@ -100,7 +100,13 @@ def validate_checkpoint(
     flipped score sits further than the tolerance from its threshold.
     """
     if arch == "clip":
-        raise NotImplementedError("the CLIP validation lane comes with the ANN slice of the port")
+        # the CLIP lane lives with the embedder and the ANN indexes (index
+        # layer; models must not import upward)
+        raise ValueError(
+            "arch='clip' is served by "
+            "kobato_eyes_tpu_torch.index.validate.validate_clip_checkpoint "
+            "(ket validate-checkpoint --arch clip dispatches there)"
+        )
     if arch not in ("swinv2", "vit", "pixai"):
         raise ValueError(f"unknown arch {arch!r} (swinv2 | vit | pixai)")
 

@@ -31,7 +31,8 @@ which kernel a call runs:
 
 A wrapper launches the kernel for a CUDA tensor and raises if the launch
 fails; it takes the plain version only for a CPU tensor. ``launches`` counts
-the kernel launches in this process.
+the kernel launches through the packed entry in this process,
+``launches_separate`` those through the entry with separate q, k, v.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import ctypes
 import torch
 
 launches = 0
+launches_separate = 0
 
 _SOURCE = "head_resident_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -144,8 +146,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     check_alignment(q, k, v)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    global launches
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, *, packed: bool) -> torch.Tensor:
+    global launches, launches_separate
     check_inputs(q, k, v)
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -160,7 +162,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
     )
     if err != 0:
         raise RuntimeError(f"head_resident_attention launch failed: cudaError_t {err}")
-    launches += 1
+    if packed:
+        launches += 1
+    else:
+        launches_separate += 1
     return out
 
 
@@ -171,7 +176,7 @@ def head_resident_attention(
     device memory on the card."""
     if q.device.type == "cpu":
         return head_resident_attention_plain(q, k, v, scale=scale)
-    return _launch(q, k, v, scale)
+    return _launch(q, k, v, scale, packed=False)
 
 
 def head_resident_attention_packed(qkv: torch.Tensor, *, scale: float) -> torch.Tensor:
@@ -184,4 +189,4 @@ def head_resident_attention_packed(qkv: torch.Tensor, *, scale: float) -> torch.
     if qkv.device.type == "cpu":
         return head_resident_attention_packed_plain(qkv, scale=scale)
     q, k, v = qkv.unbind(dim=2)
-    return _launch(q, k, v, scale)
+    return _launch(q, k, v, scale, packed=True)

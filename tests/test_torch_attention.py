@@ -84,11 +84,11 @@ def test_constant_v_rows_normalize():
 
 
 def test_cpu_path_never_counts_a_launch():
-    before = attn.launches
+    before = attn.launches, attn.launches_separate
     qkv = torch.randn(1, 9, 3, 2, 32, generator=torch.Generator().manual_seed(0))
     attn.head_resident_attention_packed(qkv, scale=0.25)
     attn.head_resident_attention(*qkv.unbind(dim=2), scale=0.25)
-    assert attn.launches == before == 0
+    assert (attn.launches, attn.launches_separate) == before == (0, 0)
 
 
 def test_kernel_input_checks():

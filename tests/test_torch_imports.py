@@ -24,8 +24,8 @@ JAXPKG = ROOT / "kobato_eyes_tpu"
 
 FORBIDDEN_ROOTS = {"kobato_eyes_tpu", "jax", "jaxlib", "flax", "optax", "orbax"}
 
-# modules the jax-blocked import must have reached, the SwinV2, dup and
-# query-engine slices' among them
+# modules the jax-blocked import must have reached, the SwinV2, dup,
+# query-engine and ANN slices' among them
 REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.ops.attention",
     "kobato_eyes_tpu_torch.ops.window_attention",
@@ -48,6 +48,13 @@ REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.query.engine",
     "kobato_eyes_tpu_torch.query.snapshot",
     "kobato_eyes_tpu_torch.utils.export",
+    "kobato_eyes_tpu_torch.index.embedder",
+    "kobato_eyes_tpu_torch.index.flat",
+    "kobato_eyes_tpu_torch.index.ivf",
+    "kobato_eyes_tpu_torch.index.hnsw",
+    "kobato_eyes_tpu_torch.index.auto",
+    "kobato_eyes_tpu_torch.index.validate",
+    "kobato_eyes_tpu_torch.core.pipeline.embed_stage",
 ]
 
 COPIED = [
@@ -66,9 +73,11 @@ COPIED = [
     "native/__init__.py", "native/build.py",
     "dup/__init__.py", "dup/types.py", "dup/dsu.py", "dup/cpu_ref.py",
     "utils/export.py", "query/__init__.py",
+    "index/hnsw.py", "core/pipeline/embed_stage.py",
 ]
 # host C++ sources, compared byte for byte
-COPIED_BYTES = ["native/hamming_scan.cpp", "native/assembly.cpp", "native/catalog_fetch.cpp"]
+COPIED_BYTES = ["native/hamming_scan.cpp", "native/assembly.cpp", "native/catalog_fetch.cpp",
+                "native/hnsw.cpp"]
 
 # layer rank per top-level module of the port (the JAX package's map, plus
 # ``device``, which sits under everything that touches a tensor)
@@ -82,6 +91,7 @@ LAYERS: dict[str, int] = {
     "sig": 2,
     "dup": 3,
     "query": 3,
+    "index": 3,
     "services": 4,
     "core": 5,
     "cli": 6,
@@ -114,8 +124,8 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import kobato_eyes_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
-        # a built native/_catalog_fetch.so is a plain C library (ctypes), no Python module
-        "names = [n for n in names if not n.endswith('._catalog_fetch')]\n"
+        # a built native/_catalog_fetch.so or _hnsw.so is a plain C library (ctypes), no Python module
+        "names = [n for n in names if not n.endswith(('._catalog_fetch', '._hnsw'))]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         f"missing = sorted(set({REQUIRED_MODULES!r}) - set(names))\n"

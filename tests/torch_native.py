@@ -4,7 +4,8 @@ Import ``native_built`` into a test module to build and load the
 ``_hamming_scan`` and ``_assembly`` extensions of the port and of the JAX
 package before its tests run; import ``catalog_fetch_built`` for the
 ``_catalog_fetch`` library (plain C, loaded with ctypes) that both packages'
-epoch builds read a catalog file through.
+epoch builds read a catalog file through, and ``hnsw_built`` for both
+packages' ``_hnsw`` graph library (plain C).
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ JAX_LOAD_TIMEOUT_S = 120.0
 CATALOG_FETCH_LINK = ("-l:libsqlite3.so.0",)
 
 
-def _load_jax_module(name: str, library: bool = False):
+def _load_jax_module(name: str, library: bool = False, link: tuple[str, ...] = ()):
     """The JAX package's extension (or, with ``library``, its plain-C
-    library), through its own loader. That loader builds
+    library linked with ``link``), through its own loader. That loader builds
     to one fixed temporary name with no lock between processes, and its own
     tests in other workers build without this fixture's lock: a load that
     meets a half-written or just-renamed file is tried again until the other
@@ -38,7 +39,7 @@ def _load_jax_module(name: str, library: bool = False):
     while True:
         try:
             if library:
-                return load_native_library(name, extra_link_args=CATALOG_FETCH_LINK)
+                return load_native_library(name, extra_link_args=link)
             return load_extension_module(name)
         except (ImportError, OSError, NativeBuildError) as exc:
             raced = not isinstance(exc, NativeBuildError) or f"_{name}.tmp.so" in str(exc)
@@ -82,6 +83,19 @@ def catalog_fetch_built():
 
     def build():
         return (load_native_library("catalog_fetch", extra_link_args=CATALOG_FETCH_LINK),
-                _load_jax_module("catalog_fetch", library=True))
+                _load_jax_module("catalog_fetch", library=True, link=CATALOG_FETCH_LINK))
+
+    return _under_build_lock(build)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def hnsw_built():
+    """Build and load both packages' ``_hnsw.so`` under the same lock, so
+    test files in other workers never meet a half-written graph library.
+    Returns (the port's library, the JAX package's)."""
+    from kobato_eyes_tpu_torch.native.build import load_native_library
+
+    def build():
+        return load_native_library("hnsw"), _load_jax_module("hnsw", library=True)
 
     return _under_build_lock(build)
