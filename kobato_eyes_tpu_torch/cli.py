@@ -1,15 +1,18 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-Counterpart of ``kobato_eyes_tpu/cli.py`` for the commands ported so far:
-``index`` (scan + tag + write, with fused signatures and, with
-``index.enabled``, fused CLIP embeddings), ``search`` over the device query
-engine (the default backend) or SQL, with CSV export and result copying,
-``repl`` (queries against a resident epoch), ``dup`` (duplicate scan, sweep,
-refinement, cohesion audit, export, trash), ``ann`` (build / query the CLIP
-ANN index, find-similar over stored vectors) and ``validate-checkpoint``
-(import -> exact-vs-fast parity -> tag flips; the CLIP embedder's lane). The
-other commands (``serve``, ``retag``, ``refresh``, ...) come with later
-slices.
+Counterpart of ``kobato_eyes_tpu/cli.py``, every command but ``serve`` and
+``train``: ``index`` (scan + tag + write, with fused signatures and, with
+``index.enabled``, fused CLIP embeddings), ``refresh`` and ``retag`` (the
+upkeep flows), ``watch`` (tag files as they appear), ``search`` over the
+device query engine (the default backend) or SQL, with CSV export and result
+copying, ``repl`` (queries against a resident epoch), ``dup`` (duplicate
+scan, sweep, refinement, cohesion audit, export, trash), ``stats``,
+``complete``, ``thresholds``, ``trash``, ``reset``, ``config``, ``ann``
+(build / query the CLIP ANN index, find-similar over stored vectors),
+``import-weights`` (a .pt/.pth/.safetensors/.onnx file -> the port's
+checkpoint directory, which ``tagger.model_path`` and ``index.checkpoint``
+name), ``inspect`` and ``validate-checkpoint`` (import -> exact-vs-fast
+parity -> tag flips; the CLIP embedder's lane).
 
 Usage: ``python -m kobato_eyes_tpu_torch.cli [--device cuda|cpu] <command> ...``
 """
@@ -25,7 +28,7 @@ import time
 from pathlib import Path
 
 from kobato_eyes_tpu_torch.core.config.schema import Settings
-from kobato_eyes_tpu_torch.core.config.service import load_settings
+from kobato_eyes_tpu_torch.core.config.service import load_settings, save_settings
 from kobato_eyes_tpu_torch.utils.paths import get_app_paths
 
 logger = logging.getLogger(__name__)
@@ -89,6 +92,36 @@ def cmd_index(args) -> int:
     stats = run_index_once(db, settings, tagger, progress=_progress_printer, device=args.device)
     print(file=sys.stderr)
     print(json.dumps(stats.__dict__, default=str))
+    return 0
+
+
+def cmd_refresh(args) -> int:
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.core.pipeline.maintenance import refresh_root
+
+    stats = refresh_root(
+        db, settings, _resolve_tagger(settings, args.device), args.root,
+        hard_delete=args.hard_delete, progress=_progress_printer, device=args.device,
+    )
+    print(file=sys.stderr)
+    print(json.dumps(stats.__dict__, default=str))
+    return 0
+
+
+def cmd_retag(args) -> int:
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.core.pipeline.fingerprint import current_tagger_sig
+    from kobato_eyes_tpu_torch.core.pipeline.maintenance import retag_all, retag_selection
+
+    if args.ids:
+        stats = retag_selection(
+            db, settings, _resolve_tagger(settings, args.device), args.ids, device=args.device
+        )
+        print(json.dumps(stats.__dict__, default=str))
+        return 0
+    sig = current_tagger_sig(_resolve_tagger(settings, args.device).signature_fields())
+    cleared = retag_all(db, current_sig=sig, force=args.force)
+    print(json.dumps({"cleared": cleared}))
     return 0
 
 
@@ -372,6 +405,246 @@ def cmd_dup(args) -> int:
     return 0
 
 
+def cmd_stats(args) -> int:
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.db.repository import load_tag_thresholds, tag_stats
+
+    conn = bootstrap(db)
+    try:
+        rows = tag_stats(
+            conn, category=args.category, name_like=args.filter,
+            thresholds=load_tag_thresholds(conn), limit=args.limit,
+        )
+        if args.export:
+            out = _export_csv(args.export, [
+                {"name": r["name"], "category": r["category"],
+                 "file_count": r["file_count"],
+                 "avg_score": round(r["avg_score"], 4),
+                 "max_score": round(r["max_score"], 4)}
+                for r in rows
+            ])
+            print(f"exported {len(rows)} rows to {out}", file=sys.stderr)
+        for r in rows:
+            print(f"{r['file_count']:8d}  {r['avg_score']:.3f}  {r['max_score']:.3f}  "
+                  f"[{r['category']}] {r['name']}")
+    finally:
+        conn.close()
+    return 0
+
+
+def cmd_complete(args) -> int:
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.db.repository import autocomplete_tags
+
+    conn = bootstrap(db)
+    try:
+        for name, cat, n in autocomplete_tags(conn, args.prefix, limit=args.limit):
+            print(f"{name}\t{cat}\t{n}")
+    finally:
+        conn.close()
+    return 0
+
+
+def cmd_thresholds(args) -> int:
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.db.repository import load_tag_thresholds, set_tag_threshold
+
+    conn = bootstrap(db)
+    try:
+        if args.set:
+            for pair in args.set:
+                cat, _, value = pair.partition("=")
+                set_tag_threshold(conn, int(cat), float(value))
+        print(json.dumps(load_tag_thresholds(conn)))
+    finally:
+        conn.close()
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    """Model/checkpoint inspection (label family, counts, an .onnx file's
+    weight inventory)."""
+    settings, _db = _load_env(args)
+    from kobato_eyes_tpu_torch.models.inspection import inspect_model
+
+    info = inspect_model(
+        checkpoint_path=args.checkpoint or settings.tagger.model_path,
+        labels_path=args.labels or settings.tagger.labels_path,
+    )
+    print(info.summary())
+    return 0
+
+
+def cmd_import_weights(args) -> int:
+    """Convert a torch/timm state dict or a .onnx model (the reference's
+    release format, parsed without onnx/onnxruntime) into the port's
+    checkpoint directory (``models/tagger.save_checkpoint``), which
+    ``tagger.model_path`` / ``index.checkpoint`` then name. The conversion
+    runs on the host: no device is touched."""
+    from kobato_eyes_tpu_torch.models.import_weights import import_torch_checkpoint
+    from kobato_eyes_tpu_torch.models.tagger import save_checkpoint
+    from kobato_eyes_tpu_torch.utils.hashing import compute_sha256
+
+    manifest = {"arch": args.arch, "preset": args.preset, "clip_variant": None}
+    if args.arch == "swinv2":
+        from kobato_eyes_tpu_torch.models.swin import swin_config
+
+        cfg = swin_config(args.preset, image_size=args.image_size, num_classes=args.classes)
+        manifest["num_classes"] = args.classes
+    elif args.arch == "clip":
+        from kobato_eyes_tpu_torch.index.embedder import embedder_config
+
+        cfg = embedder_config(args.preset, args.image_size, 32, args.classes, args.clip_variant)
+        manifest.update(embed_dim=args.classes, clip_variant=args.clip_variant)
+    else:
+        from kobato_eyes_tpu_torch.models.vit import vit_config
+
+        cfg = vit_config(args.preset, image_size=args.image_size, num_classes=args.classes)
+        manifest["num_classes"] = args.classes
+    manifest.update(image_size=cfg.image_size, patch_size=cfg.patch_size)
+    src = Path(args.state_dict)
+    manifest["source"] = {"name": src.name, "sha256": None if src.is_dir() else compute_sha256(src)}
+    save_checkpoint(args.out, import_torch_checkpoint(src, cfg), manifest=manifest)
+    print(json.dumps({"arch": args.arch, "preset": args.preset, "out": str(args.out)}))
+    return 0
+
+
+def cmd_trash(args) -> int:
+    """Trash by id (--put), list, or restore trashed files (the data-dir
+    trash keeps its own manifest, so every move is reversible)."""
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.db.repository import mark_files_present
+    from kobato_eyes_tpu_torch.utils.fs import load_trash_records, remove_trash_records, restore_from_trash
+
+    trash_dir = get_app_paths(args.data_dir or settings.data_dir).root / "trash"
+    if args.put:
+        # per-file isolation: one unmovable file must not abort the batch or
+        # leave earlier moves unrecorded
+        from kobato_eyes_tpu_torch.db.repository import get_file_by_id, mark_files_absent
+        from kobato_eyes_tpu_torch.utils.fs import append_trash_record, trash_file
+
+        conn = bootstrap(db)
+        trashed: list[int] = []
+        failed: list[int] = []
+        try:
+            rows = {int(fid): get_file_by_id(conn, fid) for fid in args.put}
+            for fid, row in rows.items():
+                dest = None
+                if row is not None:
+                    try:
+                        dest = trash_file(row["path"], trash_dir=trash_dir)
+                    except (OSError, ValueError) as exc:
+                        print(f"trash failed for {row['path']}: {exc}", file=sys.stderr)
+                if dest is None:
+                    failed.append(fid)
+                else:
+                    append_trash_record(trash_dir, file_id=fid, original=row["path"], trashed=dest)
+                    trashed.append(fid)
+            if trashed:
+                with conn:
+                    mark_files_absent(conn, trashed)
+        finally:
+            conn.close()
+        print(json.dumps({"trashed": trashed, "failed": failed}))
+        return 0 if not failed else 1
+    records = load_trash_records(trash_dir)
+    restore_ids = args.restore if args.restore is not None else []
+    if args.restore is not None and not restore_ids and not args.restore_all:
+        raise SystemExit("--restore needs file ids (or use --restore-all)")
+    if not restore_ids and not args.restore_all:
+        for r in records:
+            print(json.dumps(r))
+        print(f"{len(records)} trashed files", file=sys.stderr)
+        return 0
+
+    want = None if args.restore_all else {int(i) for i in restore_ids}
+    restored_ids: list[int] = []
+    restored_paths: set[str] = set()
+    for r in records:
+        eligible = want is None or int(r["file_id"]) in want
+        if not eligible or not Path(r["trashed"]).exists():
+            continue
+        if Path(r["original"]).exists():
+            # never clobber: another file may have taken the original path
+            print(f"skip {r['original']}: a file exists there now "
+                  "(move it aside, then restore again)", file=sys.stderr)
+            continue
+        try:
+            restore_from_trash(r["trashed"], r["original"])
+            restored_ids.append(int(r["file_id"]))
+            restored_paths.add(r["trashed"])
+        except OSError as exc:
+            print(f"restore failed for {r['trashed']}: {exc}", file=sys.stderr)
+    if restored_ids:
+        conn = bootstrap(db)
+        try:
+            with conn:
+                mark_files_present(conn, restored_ids)
+        finally:
+            conn.close()
+    if restored_paths:
+        # drops only what was restored, re-read under the manifest lock
+        remove_trash_records(trash_dir, restored_paths)
+    remaining = len(load_trash_records(trash_dir))
+    print(json.dumps({"restored": restored_ids, "remaining": remaining}))
+    return 0
+
+
+def cmd_reset(args) -> int:
+    """Reset the catalog with timestamped backups (db/admin.py)."""
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.db.admin import reset_database
+
+    if not args.yes:
+        raise SystemExit("refusing to reset without --yes")
+    backups = reset_database(db, backup=not args.no_backup)
+    print(json.dumps({"backups": [str(b) for b in backups]}))
+    return 0
+
+
+def cmd_watch(args) -> int:
+    """Event-driven tagging: poll roots and tag files as they appear, one
+    batch-of-one tag job each, on ``--device``."""
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.core.watcher import ProcessingPipeline
+
+    roots = args.root or [str(r) for r in settings.pipeline.roots]
+    if not roots:
+        raise SystemExit("no roots; pass roots or set pipeline.roots")
+    tagger = _resolve_tagger(settings, args.device)
+
+    def on_result(path, result):
+        status = "ok" if result.tagged else f"skip ({result.reason})"
+        print(f"{status}: {path}", file=sys.stderr)
+
+    pipe = ProcessingPipeline(db, tagger, on_result=on_result, device=args.device)
+    pipe.start_polling(roots, interval=args.interval)
+    print(f"watching {len(roots)} root(s); Ctrl-C to stop", file=sys.stderr)
+    try:
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        pipe.stop()
+    return 0
+
+
+def cmd_config(args) -> int:
+    settings = load_settings(args.config)
+    if args.init:
+        dest = Path(args.config or "settings.yaml")
+        save_settings(settings, dest)
+        print(f"wrote {dest}")
+        return 0
+    print(json.dumps(settings.model_dump(mode="json"), indent=2, default=str))
+    return 0
+
+
 def cmd_repl(args) -> int:
     """Interactive query loop over a resident epoch (steady-state serving).
 
@@ -591,6 +864,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--root", action="append", help="scan root (repeatable)")
     p.set_defaults(fn=cmd_index)
 
+    p = sub.add_parser("refresh", help="incremental refresh of one root")
+    p.add_argument("root")
+    p.add_argument("--hard-delete", action="store_true")
+    p.set_defaults(fn=cmd_refresh)
+
+    p = sub.add_parser("retag", help="invalidate or re-run tagging")
+    p.add_argument("--force", action="store_true", help="clear every row")
+    p.add_argument("--ids", type=int, nargs="+", help="re-tag specific file ids now")
+    p.set_defaults(fn=cmd_retag)
+
     p = sub.add_parser("search", help="tag query search (multiple queries wait once for the device)")
     p.add_argument("query", nargs="+")
     p.add_argument("--backend", choices=["device", "sql"], default="device")
@@ -622,15 +905,72 @@ def build_parser() -> argparse.ArgumentParser:
                         "keeper eccentricity) for threshold tuning")
     p.set_defaults(fn=cmd_dup)
 
+    p = sub.add_parser("stats", help="per-tag statistics")
+    p.add_argument("--category", type=int)
+    p.add_argument("--filter", help="name substring")
+    p.add_argument("--limit", type=int, default=100)
+    p.add_argument("--export", help="CSV file or directory")
+    p.set_defaults(fn=cmd_stats)
+
+    p = sub.add_parser("complete", help="tag autocomplete")
+    p.add_argument("prefix")
+    p.add_argument("--limit", type=int, default=20)
+    p.set_defaults(fn=cmd_complete)
+
+    p = sub.add_parser("thresholds", help="get/set per-category search thresholds")
+    p.add_argument("--set", action="append", metavar="CAT=VALUE")
+    p.set_defaults(fn=cmd_thresholds)
+
+    p = sub.add_parser("inspect", help="inspect a tagger checkpoint / label file")
+    p.add_argument("--checkpoint")
+    p.add_argument("--labels")
+    p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser(
+        "import-weights", help="torch/timm state dict or .onnx -> the port's checkpoint directory"
+    )
+    p.add_argument("state_dict", help=".pth/.pt/.safetensors/.onnx file")
+    p.add_argument("out", help="output checkpoint directory")
+    p.add_argument("--arch", choices=["swinv2", "vit", "clip"], default="swinv2")
+    p.add_argument("--preset", default="base")
+    p.add_argument("--image-size", type=int, default=448)
+    p.add_argument("--classes", type=int, default=8192,
+                   help="label count (taggers) or embed dim (clip)")
+    p.add_argument("--clip-variant", choices=["openai", "open_clip"], default="openai")
+    p.set_defaults(fn=cmd_import_weights)
+
+    p = sub.add_parser("reset", help="reset the catalog (timestamped backups)")
+    p.add_argument("--yes", action="store_true")
+    p.add_argument("--no-backup", action="store_true")
+    p.set_defaults(fn=cmd_reset)
+
+    p = sub.add_parser("trash", help="trash/list/restore files")
+    p.add_argument("--put", type=int, nargs="+", metavar="FILE_ID",
+                   help="move these file ids to the trash and mark absent "
+                        "(the app's delete-selected-results; reversible)")
+    p.add_argument("--restore", nargs="*", default=None, metavar="FILE_ID",
+                   help="restore these file ids (move back + mark present)")
+    p.add_argument("--restore-all", action="store_true")
+    p.set_defaults(fn=cmd_trash)
+
+    p = sub.add_parser("watch", help="tag new files as they appear (polling)")
+    p.add_argument("root", nargs="*")
+    p.add_argument("--interval", type=float, default=2.0)
+    p.set_defaults(fn=cmd_watch)
+
     p = sub.add_parser("repl", help="interactive query loop (resident epoch)")
     p.add_argument("--limit", type=int, default=20)
     p.set_defaults(fn=cmd_repl)
+
+    p = sub.add_parser("config", help="show or init settings")
+    p.add_argument("--init", action="store_true")
+    p.set_defaults(fn=cmd_config)
 
     p = sub.add_parser(
         "validate-checkpoint",
         help="import -> exact-vs-fast parity -> tag parity, one shot",
     )
-    p.add_argument("checkpoint", help=".pth/.pt/.safetensors state dict")
+    p.add_argument("checkpoint", help=".pth/.pt/.safetensors/.onnx or a checkpoint directory")
     p.add_argument(
         "--arch", choices=["swinv2", "vit", "pixai", "clip"], default="swinv2",
         help="model family lane: WD14 backbones, the PixAI tagger "

@@ -3,9 +3,10 @@
 Counterpart of ``kobato_eyes_tpu/index/embedder.py``: the embedding pass
 that feeds the ANN index. Weights are a state dict (the port's ViT under
 ``vit.`` plus ``proj.weight``; ``models/import_weights`` converts OpenAI /
-open_clip towers and the JAX package's tree) or a random init from a seeded
-``torch.Generator``. The geometry (224 px, patch 32, 512-d projection) is
-the CLIP ViT-B/32 class.
+open_clip towers and the JAX package's tree), a ``clip`` checkpoint
+directory (``ket import-weights --arch clip``) or a random init from a
+seeded ``torch.Generator``. The geometry (224 px, patch 32, 512-d
+projection) is the CLIP ViT-B/32 class.
 """
 
 from __future__ import annotations
@@ -99,10 +100,10 @@ class ImageEmbedder:
                 raise ValueError(
                     f"derive_from={derive_from} must be a multiple of image_size={image_size}"
                 )
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "orbax checkpoint loading comes with the checkpoint IO slice of the port; "
-                "use ImageEmbedder.from_clip_checkpoint for a .pt/.safetensors CLIP tower"
+        if state_dict is None and checkpoint_path is not None:
+            state_dict, clip_variant = _clip_checkpoint_state(
+                checkpoint_path, preset=preset, image_size=image_size, patch_size=patch_size,
+                embed_dim=embed_dim, clip_variant=clip_variant,
             )
         self.derive_from = derive_from
         self.device = resolve_device(device)
@@ -134,17 +135,18 @@ class ImageEmbedder:
         embed_dim: int = 512,
         device: str | torch.device | None = None,
     ) -> "ImageEmbedder":
-        """Build from a CLIP checkpoint (.pt/.safetensors), routed through
+        """Build from a CLIP checkpoint (.pt/.safetensors/.onnx, or a
+        ``clip`` checkpoint directory), routed through
         ``import_torch_checkpoint`` so naming drift fails with every key
         named instead of a deep KeyError."""
         from kobato_eyes_tpu_torch.models.import_weights import import_torch_checkpoint
 
+        common = dict(preset=preset, image_size=image_size, patch_size=patch_size,
+                      embed_dim=embed_dim, clip_variant=clip_variant, device=device)
+        if Path(state_dict_path).is_dir():  # also held to the manifest's tower convention
+            return cls(checkpoint_path=state_dict_path, **common)
         cfg = embedder_config(preset, image_size, patch_size, embed_dim, clip_variant)
-        return cls(
-            preset=preset, image_size=image_size, patch_size=patch_size,
-            embed_dim=embed_dim, clip_variant=clip_variant, device=device,
-            state_dict=import_torch_checkpoint(state_dict_path, cfg),
-        )
+        return cls(state_dict=import_torch_checkpoint(state_dict_path, cfg), **common)
 
     @property
     def prep_key(self) -> str:
@@ -205,6 +207,24 @@ class ImageEmbedder:
 
     def embed_batch(self, images: Sequence[np.ndarray]) -> np.ndarray:
         return self.embed_batch_prepared(self.prepare_batch_from_rgb(images))
+
+
+def _clip_checkpoint_state(
+    path: str | Path, *, preset: str, image_size: int, patch_size: int, embed_dim: int,
+    clip_variant: str | None,
+) -> tuple[dict[str, torch.Tensor], str | None]:
+    """A ``clip`` checkpoint directory's state and tower convention. The
+    manifest's geometry must be the embedder's; its ``clip_variant`` is
+    taken when the caller named none (settings name no variant) and must
+    agree when the caller did."""
+    from kobato_eyes_tpu_torch.models.import_weights import clip_encoder_state_manifest
+    from kobato_eyes_tpu_torch.models.tagger import checkpoint_state
+
+    expect = {"arch": "clip", "preset": preset, "image_size": image_size, "patch_size": patch_size,
+              "embed_dim": embed_dim, **({"clip_variant": clip_variant} if clip_variant else {})}
+    state, meta = checkpoint_state(path, expect=expect, key_manifest=lambda meta: clip_encoder_state_manifest(
+        embedder_config(preset, image_size, patch_size, embed_dim, meta.get("clip_variant")), embed_dim))
+    return state, meta.get("clip_variant")
 
 
 @torch.no_grad()

@@ -15,11 +15,13 @@ names, so weights arrive two ways:
   tower into the state dict of ``index/embedder.ClipImageEncoder`` (the
   timm-named ViT under ``vit.`` plus a bias-free ``proj``).
 
-``import_torch_checkpoint`` reads a ``.pt``/``.pth`` or ``.safetensors``
-file, validates it strictly against the config's key/shape manifest
-(``StateDictMismatch`` names every drifted key) and converts it. ``.onnx``
-files come with the ONNX import slice and orbax directories with the
-checkpoint IO slice.
+``import_torch_checkpoint`` reads a ``.pt``/``.pth``, ``.safetensors`` or
+``.onnx`` file (the reference's release format, read by the numpy protobuf
+reader of ``models/onnx_import.py``) or the port's own checkpoint directory
+(``models/tagger.save_checkpoint``), validates it strictly against the
+config's key/shape manifest (``StateDictMismatch`` names every drifted key;
+an ``.onnx`` file gets one retry after its constant-folded initializer
+names are recovered) and converts it.
 """
 
 from __future__ import annotations
@@ -481,17 +483,29 @@ def validate_state_against_manifest(
         raise StateDictMismatch(f"{name} does not match manifest — " + "; ".join(parts))
 
 
+def clip_encoder_state_manifest(cfg: ViTConfig, embed_dim: int) -> dict[str, tuple[int, ...]]:
+    """Keys -> shapes of the port's own ``index/embedder.ClipImageEncoder``
+    state dict: the headless timm-named ViT under ``vit.`` and ``proj``."""
+    m = vit_state_manifest(cfg, head=False)
+    if not cfg.patch_bias:
+        del m["patch_embed.proj.bias"]
+    if cfg.ln_pre:
+        m["norm_pre.weight"] = (cfg.hidden_dim,)
+        m["norm_pre.bias"] = (cfg.hidden_dim,)
+    out = {f"vit.{k}": v for k, v in m.items()}
+    out["proj.weight"] = (embed_dim, cfg.hidden_dim)
+    return out
+
+
 def load_state_file(path: str | Path) -> Mapping[str, Any]:
     """A state dict from a ``.pt``/``.pth`` file (``torch.load`` with
-    ``weights_only=True``; a ``state_dict`` key is unwrapped) or a
-    ``.safetensors`` file."""
+    ``weights_only=True``; a ``state_dict`` key is unwrapped), a
+    ``.safetensors`` file or an ``.onnx`` file (its initializers, as numpy)."""
     path = Path(path)
-    if path.is_dir():
-        raise NotImplementedError(
-            f"{path} is a directory: orbax checkpoints come with the checkpoint IO slice of the port"
-        )
     if path.suffix == ".onnx":
-        raise NotImplementedError(f"{path}: .onnx import comes with the ONNX import slice of the port")
+        from kobato_eyes_tpu_torch.models.onnx_import import read_onnx_initializers
+
+        return read_onnx_initializers(path)
     if path.suffix == ".safetensors":
         from safetensors.torch import load_file
 
@@ -505,15 +519,48 @@ def load_state_file(path: str | Path) -> Mapping[str, Any]:
 def import_torch_checkpoint(
     path: str | Path, cfg: ViTConfig | SwinConfig, *, strict: bool = True
 ) -> dict[str, torch.Tensor]:
-    """Load a ``.pt``/``.pth`` or ``.safetensors`` state dict and convert it to
-    the port's state dict for ``cfg`` (a CLIP visual tower, recognised by its
-    names, to ``index/embedder.ClipImageEncoder``'s). ``strict`` validates it against the
-    config's manifest first, so drift fails with every offending key named."""
+    """Load a ``.pt``/``.pth``, ``.safetensors`` or ``.onnx`` state dict and
+    convert it to the port's state dict for ``cfg`` (a CLIP visual tower,
+    recognised by its names, to ``index/embedder.ClipImageEncoder``'s).
+    ``strict`` validates it against the config's manifest first, so drift
+    fails with every offending key named; for ``.onnx`` a failed validation
+    is retried once on the state with its constant-folded initializers
+    recovered (``onnx_import.remap_folded_initializers``, corroborated by the
+    graph's nodes), which must then validate strictly. A port checkpoint
+    directory is validated against its own arch's manifest."""
+    path = Path(path)
+    if path.is_dir():
+        return _checkpoint_dir_state(path, cfg)
+    is_onnx = path.suffix == ".onnx"
     state = load_state_file(path)
+
+    def check(manifest: Mapping[str, Sequence[int]], st: Mapping[str, Any]) -> Mapping[str, Any]:
+        try:
+            validate_state_against_manifest(st, manifest, name=str(path))
+            return st
+        except StateDictMismatch:
+            if not is_onnx:
+                raise
+            from kobato_eyes_tpu_torch.models.onnx_import import read_onnx_nodes, remap_folded_initializers
+
+            try:
+                # the graph's MatMul -> Add chains pair a folded weight with
+                # its named bias exactly, where order alone could swap them
+                nodes = read_onnx_nodes(path)
+            except Exception:  # noqa: BLE001 - order pairing still applies
+                nodes = None
+            remapped, mapping = remap_folded_initializers(st, manifest, nodes)
+            if not mapping:
+                raise
+            validate_state_against_manifest(remapped, manifest, name=str(path))
+            return remapped
+
     if isinstance(cfg, SwinConfig):
         if strict:
+            # a folded export renames the weight (onnx::MatMul_*), but its
+            # bias keeps its name and votes for the head's style
             style = "fc" if "head.fc.weight" in state or "head.fc.bias" in state else "flat"
-            validate_state_against_manifest(state, swin_state_manifest(cfg, head_style=style), name=str(path))
+            state = check(swin_state_manifest(cfg, head_style=style), state)
         return swin_params_from_torch_state(state, cfg)
     # ViT: dispatch on the naming family — CLIP visual tower (conv1 /
     # transformer.resblocks) vs timm VisionTransformer (patch_embed / blocks)
@@ -525,11 +572,31 @@ def import_torch_checkpoint(
             # a full CLIP state dict also carries the text tower; validate
             # the visual keys only (the importer reads only those)
             visual = {k: v for k, v in state.items() if not prefix or k.startswith(prefix)}
-            validate_state_against_manifest(
-                visual, clip_vit_state_manifest(cfg, embed_out=embed_out, prefix=prefix), name=str(path)
-            )
+            visual = check(clip_vit_state_manifest(cfg, embed_out=embed_out, prefix=prefix), visual)
+            state = {**state, **visual}
         return clip_vit_params_from_torch_state(state, cfg)
     if strict:
         has_head = "head.weight" in state or "head.bias" in state
-        validate_state_against_manifest(state, vit_state_manifest(cfg, head=has_head), name=str(path))
+        state = check(vit_state_manifest(cfg, head=has_head), state)
     return vit_params_from_torch_state(state, cfg)
+
+
+def _checkpoint_dir_state(path: Path, cfg: ViTConfig | SwinConfig) -> dict[str, torch.Tensor]:
+    """The port's checkpoint directory, held to ``cfg``: its image size, an
+    arch that fits the config, and that arch's key/shape manifest (a tagger
+    checkpoint's state is already timm-named, a ``clip`` one the embedder's
+    own)."""
+    from kobato_eyes_tpu_torch.models.tagger import checkpoint_state
+
+    swin = isinstance(cfg, SwinConfig)
+
+    def key_manifest(meta: dict[str, Any]) -> dict[str, tuple[int, ...]]:
+        arch = meta.get("arch")
+        if arch not in (("swinv2",) if swin else ("vit", "clip")):
+            raise ValueError(f"{path} holds a {arch!r} checkpoint, not a {'SwinV2' if swin else 'ViT'} one")
+        if arch == "clip":
+            return clip_encoder_state_manifest(cfg, int(meta["embed_dim"]))
+        return swin_state_manifest(cfg) if swin else vit_state_manifest(cfg)
+
+    state, _ = checkpoint_state(path, expect={"image_size": cfg.image_size}, key_manifest=key_manifest)
+    return {k: v.float() for k, v in state.items()}

@@ -181,7 +181,9 @@ class WindowAttention(nn.Module):
         bnw, n, c = x.shape
         heads = self.num_heads
         hd = c // heads
-        scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0)))
+        # in f32 even from bf16 parameters: the JAX module's minimum against an
+        # f32 constant promotes a bf16 logit scale before the exp
+        scale = torch.exp(torch.clamp(self.logit_scale.float(), max=math.log(100.0)))
         bias = self.cpb_bias()
         qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
         if cfg.attn_impl == "pallas":
@@ -234,7 +236,7 @@ class ResidualPostNorm(nn.Module):
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
         y = (xf - mean) * torch.rsqrt(var + 1e-5)
-        y = y * self.weight.float() + self.bias.float()
+        y = y * self.weight + self.bias  # in f32, bf16 parameters read as stored
         return shortcut.to(cfg.dtype) + y.to(cfg.dtype)
 
 

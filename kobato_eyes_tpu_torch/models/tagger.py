@@ -8,12 +8,15 @@ propagation) is the JAX package's, and ``signature_fields()`` is equal to
 the JAX tagger's for the same config, so a catalog tagged by one package is
 not re-tagged by the other.
 
-Weights are a state dict (timm names, see ``models/import_weights.py``) or a
-random init from a seeded ``torch.Generator``. Both archs are ported: ViT
-(``models/vit.py``) and SwinV2 (``models/swin.py``, the WD14 family's real
-arch). Loading an orbax checkpoint (the checkpoint IO slice), the mesh (the
-multi-device slice) and bf16 parameters (the slice that ports the JAX
-package's ``bf16_params`` weight cast) raise until their slices land.
+Weights are a state dict (timm names, see ``models/import_weights.py``), a
+checkpoint directory written by :func:`save_checkpoint` (``ket
+import-weights`` writes one) or a random init from a seeded
+``torch.Generator``. Both archs are ported: ViT (``models/vit.py``) and
+SwinV2 (``models/swin.py``, the WD14 family's real arch). The JAX package
+keeps its checkpoints with orbax, which imports JAX; the port's format is a
+directory of ``model.safetensors`` (the state dict) beside
+``manifest.json`` (what the weights are for and where they came from). The
+mesh raises until the multi-device slice lands.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import json
 import logging
 import time
 from pathlib import Path
-from typing import Any, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -115,20 +118,22 @@ class TorchTagger:
         the exact einsum/erf forward. Only applies to an explicitly passed
         ``vit``/``swin`` config if it left those knobs at their defaults.
 
-        ``params``: the port's state dict (timm names); ``None`` draws random
-        weights from ``torch.Generator().manual_seed(seed)``.
+        ``params``: the port's state dict (timm names); else
+        ``checkpoint_path``, a directory written by :func:`save_checkpoint`
+        whose arch, preset and image size must be this tagger's and whose
+        state must match the arch's key/shape manifest; else random weights
+        from ``torch.Generator().manual_seed(seed)``.
+
+        ``bf16_params``: inference-only bf16 weights, as the JAX tagger's
+        knob: every f32 parameter is stored in bf16 once and the config's
+        ``param_dtype`` becomes bf16, so the per-use weight casts of the
+        forward have nothing left to do (LayerNorm scales and biases, the
+        logit scale and the CPB MLP's weights are rounded too, as the JAX
+        tagger rounds its whole parameter tree).
         """
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "orbax checkpoint loading comes with the checkpoint IO slice of the port; "
-                "pass params= (models/import_weights.import_torch_checkpoint reads .pt/.safetensors)"
-            )
         if mesh is not None:
             raise NotImplementedError("multi-device tagging comes with the multi-device slice")
-        if bf16_params:
-            raise NotImplementedError(
-                "bf16_params comes with the slice that ports the JAX package's bf16 weight cast"
-            )
+        explicit_cfg = swin is not None or vit is not None
         if swin is not None:
             arch = "swinv2"
         elif vit is not None:
@@ -185,8 +190,13 @@ class TorchTagger:
                 f"model head ({self.cfg.num_classes}) != label count ({len(self.labels)})"
             )
         # mean/std from a PixAI-style preprocess.json (reference
-        # pixai_onnx.py:94-104). Auto-discovery next to a checkpoint waits
-        # for checkpoint loading; an explicit path works.
+        # pixai_onnx.py:94-104): an explicit path wins, else a pixai tagger
+        # finds one next to its checkpoint
+        if preprocess_json is None and self.mode == "pixai" and checkpoint_path:
+            cand = Path(checkpoint_path)
+            cand = (cand if cand.is_dir() else cand.parent) / "preprocess.json"
+            if cand.exists():
+                preprocess_json = cand
         if preprocess_json is not None:
             from kobato_eyes_tpu_torch.models.preprocess import spec_from_preprocess_json
 
@@ -213,14 +223,29 @@ class TorchTagger:
         self._thr_dev_cache: tuple[np.ndarray, torch.Tensor] | None = None
 
         model, init = (SwinV2(self.cfg), init_swin_) if arch == "swinv2" else (ViT(self.cfg), init_vit_)
+        self._checkpoint_path = Path(checkpoint_path) if checkpoint_path else None
         if params is not None:
             model.load_state_dict(params, strict=True)
+        elif self._checkpoint_path is not None:
+            from kobato_eyes_tpu_torch.models.import_weights import swin_state_manifest, vit_state_manifest
+
+            # a config passed in names no preset; one built from the preset does
+            expect = {"arch": arch, "image_size": self.cfg.image_size, **({} if explicit_cfg else {"preset": preset})}
+            keys = swin_state_manifest if arch == "swinv2" else vit_state_manifest
+            state, _ = checkpoint_state(self._checkpoint_path, expect=expect, key_manifest=lambda _: keys(self.cfg))
+            model.load_state_dict(state, strict=True)
         else:
             logger.info(
                 "tagger %s: random-init weights (%d labels, %s/%s preset)",
                 self.mode, len(self.labels), arch, preset,
             )
             init(model, torch.Generator().manual_seed(seed))
+        if bf16_params:
+            self.cfg = dataclasses.replace(self.cfg, param_dtype=torch.bfloat16)
+            with torch.no_grad():
+                for param in model.parameters():
+                    if param.dtype == torch.float32:
+                        param.data = param.data.to(torch.bfloat16)
         self._model = model.to(self.device).eval().requires_grad_(False)
 
     # -- identity ---------------------------------------------------------
@@ -245,7 +270,7 @@ class TorchTagger:
             "name": self.mode,
             "arch": arch,
             "labels": label_digest,
-            "ckpt": "random",  # the JAX tagger's value without a checkpoint path
+            "ckpt": str(self._checkpoint_path or "random"),
             "thr": json.dumps(self.thresholds, sort_keys=True),
             "max": json.dumps({k: v for k, v in self.max_tags.items()}, sort_keys=True),
             "floor": repr(self.score_floor),
@@ -465,3 +490,71 @@ class DummyTagger:
 
     def infer_batch(self, images: Sequence[np.ndarray], **kw: Any) -> list[TagResult]:
         return self.infer_batch_prepared(self.prepare_batch_from_rgb(images), **kw)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint IO: a directory of model.safetensors + manifest.json
+# ---------------------------------------------------------------------------
+
+CHECKPOINT_FORMAT = "kobato-eyes-torch-checkpoint"
+CHECKPOINT_VERSION = 1
+STATE_FILE = "model.safetensors"
+MANIFEST_FILE = "manifest.json"
+
+
+def save_checkpoint(path: str | Path, state: Mapping[str, torch.Tensor], *, manifest: Mapping[str, Any]) -> Path:
+    """Write ``state`` (a timm-named state dict, kept in its own dtype) and
+    ``manifest`` (``arch``, ``preset``, ``image_size``, ``num_classes`` or
+    ``embed_dim``, ``patch_size``, ``clip_variant``, ``source``) into the
+    directory ``path``; the format name and version are added."""
+    from safetensors.torch import save_file
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    save_file({k: v.detach().cpu().contiguous() for k, v in state.items()}, str(path / STATE_FILE))
+    meta = {"format": CHECKPOINT_FORMAT, "version": CHECKPOINT_VERSION, **manifest}
+    (path / MANIFEST_FILE).write_text(json.dumps(meta, indent=2, sort_keys=True) + "\n", encoding="utf-8")
+    return path
+
+
+def load_checkpoint(path: str | Path) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
+    """``(state, manifest)`` of a directory written by :func:`save_checkpoint`.
+    Anything else raises ``ValueError``: an orbax directory of the JAX
+    package, a bare weights file, a newer format."""
+    path = Path(path)
+    meta_path = path / MANIFEST_FILE
+    if not path.is_dir() or not meta_path.is_file():
+        raise ValueError(
+            f"{path} is not a checkpoint of this package (a directory holding {MANIFEST_FILE} and "
+            f"{STATE_FILE}); convert weights with `ket import-weights <file> <out dir>` "
+            "(.pt/.pth/.safetensors/.onnx)"
+        )
+    meta = json.loads(meta_path.read_text(encoding="utf-8"))
+    if meta.get("format") != CHECKPOINT_FORMAT or int(meta.get("version", 0)) > CHECKPOINT_VERSION:
+        raise ValueError(
+            f"{path}: checkpoint format {meta.get('format')!r} version {meta.get('version')!r} "
+            f"is not {CHECKPOINT_FORMAT!r} <= {CHECKPOINT_VERSION}"
+        )
+    from safetensors.torch import load_file
+
+    return load_file(str(path / STATE_FILE)), meta
+
+
+def checkpoint_state(
+    path: str | Path,
+    *,
+    expect: Mapping[str, Any],
+    key_manifest: Callable[[dict[str, Any]], Mapping[str, Sequence[int]]],
+) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
+    """``(state, manifest)`` of a checkpoint held to its reader: every entry
+    of ``expect`` must equal the manifest's, and the state must match
+    ``key_manifest(manifest)`` key for key and shape for shape
+    (``StateDictMismatch`` names every drifted key)."""
+    from kobato_eyes_tpu_torch.models.import_weights import validate_state_against_manifest
+
+    state, meta = load_checkpoint(path)
+    drift = [f"{k} {meta.get(k)!r} != {v!r}" for k, v in expect.items() if meta.get(k) != v]
+    if drift:
+        raise ValueError(f"{path} was written for another model: " + "; ".join(drift))
+    validate_state_against_manifest(state, key_manifest(meta), name=str(path))
+    return state, meta

@@ -14,9 +14,9 @@ cannot:
 
 Lanes: ``swinv2`` and ``vit`` (WD14 class) and ``pixai`` (ViT backbone,
 preprocess.json discovery, ips propagation probe); the ``clip`` lane is
-``index/validate.py``. Orbax directories come with the checkpoint IO slice
-and ``.onnx`` files with the ONNX import slice. ``cli.cmd_validate_checkpoint``
-is the thin shell.
+``index/validate.py``. The file is a ``.pt``/``.pth``, ``.safetensors`` or
+``.onnx`` state dict, or the port's checkpoint directory (``ket
+import-weights``). ``cli.cmd_validate_checkpoint`` is the thin shell.
 """
 
 from __future__ import annotations
@@ -140,7 +140,8 @@ def validate_checkpoint(
 
         cfg = vit_config(preset, image_size=image_size, num_classes=n_classes)
     params = import_torch_checkpoint(path, cfg)  # raises with keys named
-    report["import"] = "strict-manifest-ok"
+    # a checkpoint directory (``ket import-weights``) is held to its manifest
+    report["import"] = "checkpoint" if path.is_dir() else "strict-manifest-ok"
 
     common: dict[str, Any] = dict(
         labels=labels, arch=backbone, preset=preset, image_size=image_size,
@@ -148,7 +149,7 @@ def validate_checkpoint(
     )
     if pixai:
         # the release layout ships normalisation statistics next to the model
-        pj = path.parent / "preprocess.json"
+        pj = (path if path.is_dir() else path.parent) / "preprocess.json"
         if pj.exists():
             common["preprocess_json"] = pj
         exact = PixaiTagger(fast_math=False, **common)

@@ -182,8 +182,10 @@ class LayerNorm(nn.Module):
         mu = xf.mean(dim=-1, keepdim=True)
         mu2 = (xf * xf).mean(dim=-1, keepdim=True)
         var = torch.clamp(mu2 - mu * mu, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mu) * mul + self.bias.float()).to(self.dtype)
+        # f32 times the weight's own dtype computes in f32 with no cast pass:
+        # bf16 parameters (``bf16_params``) are read as they are stored
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mu) * mul + self.bias).to(self.dtype)
 
 
 class Attention(nn.Module):

@@ -32,17 +32,21 @@ which kernel a call runs:
 A wrapper launches the kernel for a CUDA tensor and raises if the launch
 fails; it takes the plain version only for a CPU tensor. ``launches`` counts
 the kernel launches through the packed entry in this process,
-``launches_separate`` those through the entry with separate q, k, v.
+``launches_separate`` those through the entry with separate q, k, v; both
+are counted under a lock, since the watcher's tag jobs run the tagger on
+worker threads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 launches = 0
 launches_separate = 0
+_count_lock = threading.Lock()
 
 _SOURCE = "head_resident_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -162,10 +166,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, *, 
     )
     if err != 0:
         raise RuntimeError(f"head_resident_attention launch failed: cudaError_t {err}")
-    if packed:
-        launches += 1
-    else:
-        launches_separate += 1
+    with _count_lock:
+        if packed:
+            launches += 1
+        else:
+            launches_separate += 1
     return out
 
 

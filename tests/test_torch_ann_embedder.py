@@ -232,5 +232,6 @@ def test_default_device_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         temb.ImageEmbedder(**EMB)
-    with pytest.raises(NotImplementedError, match="checkpoint IO"):
+    # a path that is no checkpoint directory names the converter
+    with pytest.raises(ValueError, match="import-weights"):
         temb.ImageEmbedder(**EMB, device="cpu", checkpoint_path="ckpt")

@@ -25,7 +25,7 @@ JAXPKG = ROOT / "kobato_eyes_tpu"
 FORBIDDEN_ROOTS = {"kobato_eyes_tpu", "jax", "jaxlib", "flax", "optax", "orbax"}
 
 # modules the jax-blocked import must have reached, the SwinV2, dup,
-# query-engine and ANN slices' among them
+# query-engine, ANN and checkpoint / upkeep slices' among them
 REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.ops.attention",
     "kobato_eyes_tpu_torch.ops.window_attention",
@@ -55,6 +55,14 @@ REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.index.auto",
     "kobato_eyes_tpu_torch.index.validate",
     "kobato_eyes_tpu_torch.core.pipeline.embed_stage",
+    "kobato_eyes_tpu_torch.models.onnx_import",
+    "kobato_eyes_tpu_torch.models.inspection",
+    "kobato_eyes_tpu_torch.core.jobs",
+    "kobato_eyes_tpu_torch.core.tag_job",
+    "kobato_eyes_tpu_torch.core.watcher",
+    "kobato_eyes_tpu_torch.core.pipeline.maintenance",
+    "kobato_eyes_tpu_torch.db.admin",
+    "kobato_eyes_tpu_torch.utils.crash",
 ]
 
 COPIED = [
@@ -74,6 +82,8 @@ COPIED = [
     "dup/__init__.py", "dup/types.py", "dup/dsu.py", "dup/cpu_ref.py",
     "utils/export.py", "query/__init__.py",
     "index/hnsw.py", "core/pipeline/embed_stage.py",
+    "models/onnx_import.py", "models/inspection.py", "core/jobs.py", "db/admin.py",
+    "utils/crash.py",
 ]
 # host C++ sources, compared byte for byte
 COPIED_BYTES = ["native/hamming_scan.cpp", "native/assembly.cpp", "native/catalog_fetch.cpp",

@@ -236,10 +236,12 @@ def test_import_torch_checkpoint_reads_files(tmp_path, suffix):
 
 def test_later_formats_name_their_slices(tmp_path):
     _, tcfg = _configs("f32")
+    # both formats are read now: an empty .onnx is no model, and a directory
+    # without the port's manifest (an orbax one) names the converter
     (tmp_path / "model.onnx").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ONNX"):
+    with pytest.raises(ValueError, match="no GraphProto"):
         timport.import_torch_checkpoint(tmp_path / "model.onnx", tcfg)
-    with pytest.raises(NotImplementedError, match="checkpoint IO"):
+    with pytest.raises(ValueError, match="import-weights"):
         timport.import_torch_checkpoint(tmp_path, tcfg)
 
 
