@@ -48,14 +48,27 @@ batch 32, random seeded weights):
   checkpoint against the tagger holding its weights; the ``bf16_params``
   forward beside the f32-weight one; ``refresh``, ``retag``, the watcher
   (batch-of-one tag jobs on worker threads) and the host commands against
-  SQL, ``reset`` last.
+  SQL, ``reset`` last;
+* GELU: the erf and tanh pass (bf16 and f32) against its plain version at
+  ViT-B/448's and SwinV2-B/448's MLP shapes, timed beside ``F.gelu``, and
+  both taggers' forwards with the pass, the plain sequence and ``F.gelu``;
+* training: ``train`` through the CLI on the ViT run's catalog (ViT-B/16 @
+  448, batch 16, one epoch), the checkpoint in ``TorchTagger`` and an
+  ``index`` from it, the step's time and MFU;
+* serving: the port's server in this process on the 20 000-file, the dup
+  and the ANN catalogs: ``/search`` against SQL, ``/dup?audit=1`` against
+  ``dup --audit``, ``/similar`` against ``find_similar``, ``/delta``,
+  ``/reload``, ``/trash``, ``/file``, ``/thumb``.
 
 Kernels 3 and 5 run shorter than the host takes to enqueue a call, so their
 times are taken through CUDA graphs. Each kernel's launch count is set to 0
 just before the path that runs it and read just after; the attention
 wrapper counts its packed and its separate-q, k, v entries apart, and the
 latter's count is summed over the ViT, SwinV2, ANN and upkeep runs; the
-upkeep steps' kernel-1 and window launches are added to those kernels'. It
+upkeep steps' and the fine-tuned index run's kernel-1 launches and the
+upkeep steps' window launches are added to those kernels'; the GELU count
+sums the ViT and SwinV2 index runs, the training and the fine-tuned index
+run; kernel 5's adds the server's ``/dup?audit=1``. It
 checks each tagger's fast forward against its exact forward, and prints one JSON line of kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. Any failed phase exits
 non-zero before the last line. Without a CUDA device, or without the
@@ -666,6 +679,176 @@ def layernorm_residual_phase() -> dict:
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
         "library_ms": library_ms,
+    }
+
+
+# GELU shapes: the MLP activation of ViT-B/448 at batch 32 (32 x 785 tokens x
+# 3072) and of SwinV2-B/448's four stages (tokens x 4C)
+VIT_GELU = (BATCH * 785, 3072)
+SWIN_GELU = tuple((BATCH * (112 >> s) ** 2, 512 << s) for s in range(4))
+# f32 operations an element by the path it takes (a fused multiply-add counts
+# two, exp / tanh / a division one each): erf |z| < 1, erf |z| >= 1, tanh
+GELU_OPS = {"erf_small": 20, "erf_big": 46, "tanh": 12}
+
+
+def gelu_phase() -> dict:
+    """The GELU pass (erf and tanh forms, bf16 and f32) against its plain
+    version at ViT-B/448's and SwinV2-B/448's MLP shapes: the count of
+    differing elements, printed and bounded; the scalar body on a view off
+    alignment and a ragged tail; times of the kernel, the plain sequence and
+    ``F.gelu`` at each shape; then the ViT-B/448 and SwinV2-B/448 forwards at
+    batch 32 with the kernel, with the plain op-by-op sequence and with
+    ``F.gelu`` in its place. Returns the kernel's entry (the tanh form at the
+    ViT-B/448 shape, the form of the index runs' fast forward)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from kobato_eyes_tpu_torch.models import vit as vit_mod
+    from kobato_eyes_tpu_torch.models.labels import synthetic_labels
+    from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
+    from kobato_eyes_tpu_torch.ops import gelu
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(shape, dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * 3).to(dtype)
+
+    def plain(x, approximate):
+        return gelu.gelu_tanh_plain(x) if approximate else gelu.gelu_erf_plain(x)
+
+    def compare(name, x, approximate, expect, variant=None):
+        ran = variant or gelu.kernel_variant(x, x)
+        check(ran == expect, f"gelu {name}: runs {ran}, expected {expect}")
+        got = gelu.gelu_forward(x, approximate=approximate, variant=variant)
+        want = plain(x, approximate)
+        torch.cuda.synchronize()
+        check(got.dtype == x.dtype and got.shape == x.shape, f"gelu {name}: dtype/shape")
+        check(bool(torch.isfinite(got).all()), f"gelu {name}: non-finite output")
+        g, w = got.float(), want.float()
+        diff = g != w
+        n_diff = int(diff.sum())
+        err = float((g - w).abs().max())
+        # the plain version's fused multiply-adds go through f64 and round
+        # twice: one in ~1e9 can sit one f32 step off, which a later step
+        # can carry to a few f32 steps of the input's magnitude (1 + tanh
+        # cancels) or the bf16 rounding to one bf16 step
+        step = 2.0**-7 if x.dtype == torch.bfloat16 else 2.0**-21
+        within = bool(((g - w).abs() <= step * torch.maximum(x.float().abs(), w.abs())).all())
+        bound = 4 + x.numel() // 10**6
+        tol = "one bf16 step each" if x.dtype == torch.bfloat16 else "2^-21 of the input's magnitude each"
+        print(f"gelu {name} [{ran}]: {n_diff} of {x.numel()} elements differ from the plain version "
+              f"(bound {bound}, {tol}), max_abs_err={err:.3e}")
+        check(n_diff <= bound and within, f"gelu {name}: {n_diff} elements differ (bound {bound}) or not within {tol}")
+        return err
+
+    errs = {}
+    for shape in (VIT_GELU,) + SWIN_GELU:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = inputs(shape, dtype)
+            for approximate in (True, False):
+                form = "tanh" if approximate else "erf"
+                name = f"{form} {shape} {str(dtype).split('.')[-1]}"
+                errs[(shape, dtype, approximate)] = compare(name, x, approximate, "vec")
+            del x
+    # the scalar body and the vec body's tail: a view 2 bytes off a 16-byte
+    # boundary, element counts that leave a partial last chunk
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        for approximate in (True, False):
+            form = "tanh" if approximate else "erf"
+            base = inputs(1 << 20, dtype)
+            off = base[1:].view(1023, 1025)  # contiguous, starts one element in
+            check(gelu.kernel_variant(off, off) == "scalar", "gelu: misaligned view runs vec")
+            compare(f"{form} misaligned view {dt}", off, approximate, "scalar")
+            compare(f"{form} 1001 elements {dt}", inputs(1001, dtype), approximate, "vec")
+            compare(f"{form} 7 elements {dt}", inputs(7, dtype), approximate, "vec")
+            compare(f"{form} forced scalar {dt}", inputs((97, 3072), dtype), approximate, "scalar",
+                    variant="scalar")
+    special = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, -2.0, -13.25, 30.0, -30.0, 1e30, -1e30,
+                            float("inf"), float("-inf"), float("nan")], device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        for approximate in (True, False):
+            s = special.to(dtype)
+            got = gelu.gelu_forward(s, approximate=approximate).float()
+            want = plain(s, approximate).float()
+            same = bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+            check(same, f"gelu special values {dtype} approximate={approximate}: {got} != {want}")
+    print("gelu special values (0, -0, +-1, +-2, -13.25, +-30, +-1e30, +-inf, nan): equal to the plain version")
+
+    # times at each shape: kernel and F.gelu through a CUDA graph over input
+    # sets that together exceed the L2 several times, the plain sequence call
+    # by call
+    rows = {}
+    for shape in (VIT_GELU,) + SWIN_GELU:
+        for dtype in (torch.bfloat16, torch.float32):
+            n = shape[0] * shape[1]
+            bytes_moved = 2 * n * torch.tensor([], dtype=dtype).element_size()
+            sets = [inputs(shape, dtype) for _ in range(max(2, min(8, -(-400_000_000 // bytes_moved))))]
+            for approximate in (True, False):
+                form = "tanh" if approximate else "erf"
+                ms = cuda_graph_ms([lambda a=a: gelu.gelu_forward(a, approximate=approximate) for a in sets] * 2)
+                lib_ms = cuda_graph_ms([lambda a=a: F.gelu(a, approximate=form if approximate else "none")
+                                        for a in sets] * 2)
+                plain_ms = cuda_ms(lambda: plain(sets[0], approximate), iters=2, warmup=1)
+                if approximate:
+                    ops = GELU_OPS["tanh"] * n
+                else:
+                    small = int(((sets[0].float().abs() * 0.7071067811865476) < 1).sum())
+                    ops = GELU_OPS["erf_small"] * small + GELU_OPS["erf_big"] * (n - small)
+                t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / F32_FLOPS_PER_S * 1e3
+                bound = max(t_bytes, t_ops)
+                print(f"gelu {form} {shape} {str(dtype).split('.')[-1]}: kernel {ms:.4f} ms "
+                      f"({ms / bound:.2f}x the bound, {bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s), "
+                      f"F.gelu {lib_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
+                      f"({'bytes' if t_bytes >= t_ops else 'operations'}: {bytes_moved / 1e6:.1f} MB, "
+                      f"{ops / 1e9:.2f} GFLOP)")
+                rows[(shape, dtype, approximate)] = (ms, plain_ms, lib_ms, t_ops, t_bytes)
+            del sets
+
+    # the forwards at batch 32: the kernel (this tree), the plain op-by-op
+    # sequence in its place, and F.gelu in its place
+    labels = synthetic_labels(N_LABELS)
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, size=(448, 448, 3), dtype=np.uint8) for _ in range(4)]
+    variants = {
+        "kernel": gelu.gelu,
+        "plain": lambda x, approximate=False: plain(x, approximate),
+        "F.gelu": lambda x, approximate=False: F.gelu(x, approximate="tanh" if approximate else "none"),
+    }
+    kernel_fn = vit_mod.gelu
+    for arch in ("vit", "swinv2"):
+        fast = WD14Tagger(arch=arch, labels=labels, device="cuda")
+        exact = WD14Tagger(arch=arch, labels=labels, device="cuda", fast_math=False,
+                           params=fast._model.state_dict())
+        b32 = np.concatenate([fast.prepare_batch_from_rgb(imgs)] * (BATCH // len(imgs)))
+        line = []
+        try:
+            for name, fn in variants.items():
+                vit_mod.gelu = fn
+                for kind, tagger in (("fast", fast), ("exact", exact)):
+                    ms = cuda_ms(lambda: tagger.forward_probs(b32), iters=5 if name == "kernel" else 3)
+                    line.append(f"{kind} with {name} {ms:.2f} ms")
+        finally:
+            vit_mod.gelu = kernel_fn
+        print(f"{arch}-b448 batch-{BATCH} forward_probs: " + ", ".join(line))
+        del fast, exact
+
+    ms, plain_ms, lib_ms, t_ops, t_bytes = rows[(VIT_GELU, torch.bfloat16, True)]
+    return {
+        "name": "gelu",
+        "route": "cuda",
+        "source": "kobato_eyes_tpu_torch/csrc/gelu.cu",
+        "replaces": "kobato_eyes_tpu/models/vit.py:225",
+        "launches": None,  # filled from the main paths' runs
+        "max_abs_err": max(errs.values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": lib_ms,
     }
 
 
@@ -1694,26 +1877,31 @@ def print_index_stats(name: str, stats: dict, wall: float, launches: str) -> Non
     check(stats["tag_failed"] == 0, f"{name}: tag_failed {stats['tag_failed']} != 0")
 
 
-def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int]:
+def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int, int]:
     """ViT index + search through the CLI; returns the attention launches of
-    the index run through the packed and the separate q, k, v entries."""
+    the index run through the packed and the separate q, k, v entries, and
+    its GELU launches."""
     import numpy as np
     import torch
 
-    from kobato_eyes_tpu_torch.ops import attention
+    from kobato_eyes_tpu_torch.ops import attention, gelu
 
     data = work / "data"
     base = ["--config", str(cfg), "--data-dir", str(data), "--device", "cuda"]
     attention.launches = attention.launches_separate = 0
+    gelu.launches = 0
     t0 = time.perf_counter()
     out = run_cli(base + ["index"])
     wall = time.perf_counter() - t0
-    launches, separate = attention.launches, attention.launches_separate
+    launches, separate, gelu_launches = attention.launches, attention.launches_separate, gelu.launches
     stats = json.loads(out.strip().splitlines()[-1])
-    print_index_stats("vit-b448", stats, wall, f"attention_launches={launches} separate_qkv={separate}")
-    depth = 12  # ViT-B: one attention launch per layer per batch
+    print_index_stats("vit-b448", stats, wall,
+                      f"attention_launches={launches} separate_qkv={separate} gelu_launches={gelu_launches}")
+    depth = 12  # ViT-B: one attention and one GELU launch per layer per batch
     check(launches == depth * (N_IMAGES // BATCH),
           f"attention launches {launches} != {depth * (N_IMAGES // BATCH)}")
+    check(gelu_launches == depth * (N_IMAGES // BATCH),
+          f"gelu launches {gelu_launches} != {depth * (N_IMAGES // BATCH)}")
     search_top_tag(data, base)
 
     # the fast forward (attention kernel + tanh-gelu) against the exact
@@ -1747,15 +1935,15 @@ def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, in
     print(f"vit-b448 batch-{BATCH} forward_probs: fast {fast_ms:.2f} ms, exact {exact_ms:.2f} ms "
           f"({BATCH / fast_ms * 1e3:.1f} images/s device-side on the fast path)")
     del fast, exact
-    return launches, separate
+    return launches, separate, gelu_launches
 
 
-def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int, int]:
+def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int, int, int]:
     """SwinV2-B/448: index through ``run_index_once``, search through the CLI,
     fast / exact / residual-LN forwards, then ``validate-checkpoint`` through
     the CLI on the index tagger's weights. Returns the window-kernel and the
-    separate-q, k, v attention launches of the index run and the LN-kernel
-    launches of the residual-LN batch."""
+    separate-q, k, v attention launches of the index run, the LN-kernel
+    launches of the residual-LN batch and the index run's GELU launches."""
     import dataclasses
 
     import numpy as np
@@ -1765,7 +1953,7 @@ def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int
     from kobato_eyes_tpu_torch.core.pipeline import run_index_once
     from kobato_eyes_tpu_torch.models.labels import load_labels
     from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
-    from kobato_eyes_tpu_torch.ops import attention, layernorm_residual, window_attention
+    from kobato_eyes_tpu_torch.ops import attention, gelu, layernorm_residual, window_attention
     from kobato_eyes_tpu_torch.utils.image_io import load_rgb_array
 
     t0 = time.perf_counter()
@@ -1777,16 +1965,20 @@ def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int
     window_attention.launches = 0
     layernorm_residual.launches = 0
     attention.launches_separate = 0
+    gelu.launches = 0
     t0 = time.perf_counter()
     stats = run_index_once(data / "db" / "catalog.sqlite3", load_settings(cfg), fast).__dict__
     wall = time.perf_counter() - t0
     win_launches, ln_launches = window_attention.launches, layernorm_residual.launches
-    separate = attention.launches_separate
+    separate, gelu_launches = attention.launches_separate, gelu.launches
     print_index_stats("swinv2-b448", stats, wall,
-                      f"window_launches={win_launches} ln_launches={ln_launches} separate_qkv={separate}")
-    depth = sum(SWIN_B448_DEPTHS)  # one window-kernel launch per block per batch
+                      f"window_launches={win_launches} ln_launches={ln_launches} separate_qkv={separate} "
+                      f"gelu_launches={gelu_launches}")
+    depth = sum(SWIN_B448_DEPTHS)  # one window-kernel and one GELU launch per block per batch
     check(win_launches == depth * (N_IMAGES // BATCH),
           f"window launches {win_launches} != {depth * (N_IMAGES // BATCH)}")
+    check(gelu_launches == depth * (N_IMAGES // BATCH),
+          f"gelu launches {gelu_launches} != {depth * (N_IMAGES // BATCH)}")
     check(ln_launches == 0, f"LN launches {ln_launches} != 0 with ln_impl=xla")
     search_top_tag(data, ["--config", str(cfg), "--data-dir", str(data), "--device", "cuda"])
 
@@ -1844,7 +2036,7 @@ def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int
     )
     check(report["finite"], "validate-checkpoint: non-finite forward")
     check(report["max_prob_deviation"] <= 0.02, "validate-checkpoint: deviation over 0.02")
-    return win_launches, separate, ln_launches
+    return win_launches, separate, ln_launches, gelu_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2505,6 +2697,344 @@ def upkeep_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, i
     return counted["attention"], counted["window"], counted["separate"]
 
 
+# ---------------------------------------------------------------------------
+# Training and serving: ket train, the query server
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 16
+TRAIN_SIZE = 448
+
+
+def train_phase(work: Path, lib: Path) -> tuple[int, int]:
+    """``ket train --device cuda`` on the ViT index run's catalog: ViT-B/16 @
+    448, batch 16, the catalog's tags as the vocabulary, one epoch (16
+    steps). The loss must be finite and fall, no attention kernel may run
+    (it has no backward), the checkpoint and labels CSV must load into
+    ``TorchTagger``, and a fast-math ``index`` of the library from that
+    checkpoint must launch kernel 1 twelve times a batch with no failed tag.
+    Then the step's time (CUDA events, warm, mean of 5), its MFU and its peak
+    memory. Returns the GELU launches of the training and of that index run,
+    and the kernel-1 launches of the index run."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.core.config.schema import PipelineSettings, Settings, TaggerSettings
+    from kobato_eyes_tpu_torch.core.config.service import save_settings
+    from kobato_eyes_tpu_torch.models.preprocess import PreprocessSpec
+    from kobato_eyes_tpu_torch.models.tagger import TorchTagger
+    from kobato_eyes_tpu_torch.models.train import TrainConfig, make_train_step
+    from kobato_eyes_tpu_torch.models.vit import vit_config, vit_forward_flops
+    from kobato_eyes_tpu_torch.ops import attention, gelu
+    from kobato_eyes_tpu_torch.utils.image_io import load_rgb_array
+
+    t_phase = time.perf_counter()
+    out = work / "finetuned"
+    attention.launches = attention.launches_separate = 0
+    gelu.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = json.loads(run_cli(["--data-dir", str(work / "data"), "--device", DEVICE, "train", "--preset", "base",
+                              "--image-size", str(TRAIN_SIZE), "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
+                              "--out", str(out)]).strip().splitlines()[-1])
+    wall = time.perf_counter() - t0
+    train_attn = attention.launches + attention.launches_separate
+    train_gelu = gelu.launches
+    peak_cli = torch.cuda.max_memory_allocated()
+    steps = N_IMAGES // TRAIN_BATCH
+    print(f"ket train vit-b448: files={res['files']} labels={res['labels']} steps={res['steps']} "
+          f"first_loss={res['first_loss']:.6f} final_loss={res['final_loss']:.6f} elapsed_sec={res['elapsed_sec']} "
+          f"wall={wall:.1f} s; attention launches {train_attn}, gelu launches {train_gelu}, "
+          f"peak memory {peak_cli / 2**30:.2f} GiB")
+    check(res["files"] == N_IMAGES and res["steps"] == steps, f"train: {res['files']} files, {res['steps']} steps")
+    check(np.isfinite(res["first_loss"]) and np.isfinite(res["final_loss"]), "train: non-finite loss")
+    check(res["final_loss"] < res["first_loss"], "train: the loss did not fall")
+    check(train_attn == 0, f"train: {train_attn} attention-kernel launches (no backward)")
+    check(train_gelu == 12 * steps, f"train: gelu launches {train_gelu} != {12 * steps}")
+
+    # the checkpoint and labels CSV load into the tagger (fast math on CUDA)
+    tagger = TorchTagger(checkpoint_path=res["checkpoint"], labels_path=res["labels_csv"], device=DEVICE)
+    check(tagger.cfg.attn_impl == "pallas" and tagger.cfg.num_classes == res["labels"], "fine-tuned tagger")
+    imgs = [load_rgb_array(p) for p in sorted(lib.iterdir())[:4]]
+    probs = tagger.forward_probs(tagger.prepare_batch_from_rgb(imgs))
+    torch.cuda.synchronize()
+    check(tuple(probs.shape) == (4, res["labels"]) and bool(torch.isfinite(probs).all()),
+          "fine-tuned tagger: probabilities")
+    del tagger
+
+    # an index run of the library from the fine-tuned checkpoint
+    settings = Settings(
+        pipeline=PipelineSettings(roots=[lib], batch_size=BATCH, inline_signatures=False),
+        tagger=TaggerSettings(name="wd14", labels_path=Path(res["labels_csv"]), model_path=Path(res["checkpoint"])),
+    )
+    cfg = work / "settings_finetuned.yaml"
+    save_settings(settings, cfg)
+    attention.launches = attention.launches_separate = 0
+    gelu.launches = 0
+    t0 = time.perf_counter()
+    stats = json.loads(run_cli(["--config", str(cfg), "--data-dir", str(work / "data_finetuned"),
+                                "--device", DEVICE, "index"]).strip().splitlines()[-1])
+    index_attn, index_gelu = attention.launches, gelu.launches
+    print_index_stats("vit-b448 from the fine-tuned checkpoint", stats, time.perf_counter() - t0,
+                      f"attention_launches={index_attn} gelu_launches={index_gelu}")
+    check(index_attn == 12 * (N_IMAGES // BATCH), f"index from the checkpoint: {index_attn} attention launches")
+    check(index_gelu == 12 * (N_IMAGES // BATCH), f"index from the checkpoint: {index_gelu} gelu launches")
+
+    # the step alone: ViT-B/448 at batch 16 over the catalog's vocabulary
+    vcfg = vit_config("base", image_size=TRAIN_SIZE, num_classes=res["labels"])
+    step, _ = make_train_step(vcfg, PreprocessSpec(mode="wd14", size=TRAIN_SIZE), TrainConfig(), device=DEVICE)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 256, size=(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.uint8)).to(DEVICE)
+    y = torch.from_numpy((rng.random((TRAIN_BATCH, res["labels"])) < 0.05).astype(np.float32)).to(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(x, y), iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    flops = 3.0 * vit_forward_flops(vcfg, TRAIN_BATCH)
+    print(f"train step vit-b448 batch {TRAIN_BATCH}, {res['labels']} labels: {step_ms:.2f} ms (CUDA events, warm, "
+          f"mean of 5), {flops / 1e12:.2f} TFLOP (3 x forward), MFU {flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S:.4f} "
+          f"against {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16; max_memory_allocated {peak / 2**30:.2f} GiB")
+    # where a step's time goes: forward + loss, backward, the AdamW update
+    # (CUDA events between the three, mean of 5), and the plain GELU
+    # backward alone at the step's MLP shape, once for each of the 12 layers
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(5)]
+    for ev in marks:
+        ev[0].record()
+        step.optimizer.zero_grad(set_to_none=True)
+        loss = step.loss(x, y)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        step.optimizer.step()
+        ev[3].record()
+    torch.cuda.synchronize()
+    split = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / len(marks) for i in range(3)]
+    h = torch.randn(TRAIN_BATCH * (vcfg.num_patches + 1), vcfg.mlp_dim, device=DEVICE).to(torch.bfloat16)
+    gelu_bwd_ms = 12 * cuda_ms(lambda: gelu.gelu_erf_backward_plain(h, h), iters=3, warmup=1)
+    print(f"train step split: forward + loss {split[0]:.2f} ms, backward {split[1]:.2f} ms, AdamW {split[2]:.2f} ms; "
+          f"the plain erf-GELU backward at ({h.shape[0]}, {h.shape[1]}) bf16, 12 layers: {gelu_bwd_ms:.2f} ms; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    del step, x, y, h
+    return train_gelu + index_gelu, index_attn
+
+
+def _http(base: str, route: str, payload=None) -> tuple[int, str, bytes]:
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + route, data=data, method="GET" if payload is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers.get("Content-Type"), exc.read()
+
+
+def _http_json(base: str, route: str, payload=None) -> dict:
+    status, ctype, body = _http(base, route, payload)
+    check(status == 200 and ctype == "application/json", f"{route}: HTTP {status} {body[:200]!r}")
+    return json.loads(body)
+
+
+class _Served:
+    """The port's server on 127.0.0.1, a free port, in a thread of this process."""
+
+    def __init__(self, db: Path, data_root: Path | None = None):
+        import threading
+
+        from kobato_eyes_tpu_torch.services.server import make_server
+
+        self.httpd, self.core = make_server(db, "127.0.0.1", 0, data_root=data_root, device=DEVICE)
+        self.base = "http://%s:%d" % self.httpd.server_address[:2]
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+
+
+def serve_phase(work: Path) -> int:
+    """The port's server in this process on ``127.0.0.1:0``: on the 20 000-file
+    catalog, ``/search`` against the SQL backend over the parity queries, a
+    POST batch against the singles, ``/search`` latency by the host clock
+    beside the in-process search; on the dup CLI phase's catalog,
+    ``/dup?audit=1`` against ``ket dup --audit --export``'s clusters and the
+    audit it summarizes; on the ANN phase's catalog, ``/similar`` against
+    ``find_similar``; then ``/delta`` and ``/reload`` after files are added,
+    ``/trash``, ``/file`` and ``/thumb``. Returns the kernel-5 launches of the
+    ``/dup?audit=1`` request."""
+    import csv
+    import urllib.parse
+
+    import numpy as np
+    from PIL import Image
+
+    from kobato_eyes_tpu_torch.core.pipeline.embed_stage import load_embedding, load_embeddings
+    from kobato_eyes_tpu_torch.db.connection import bootstrap
+    from kobato_eyes_tpu_torch.db.repository import (
+        TaggingItem, iter_files_for_dup, load_tag_thresholds, set_tag_threshold, upsert_file, write_tagging_batch,
+    )
+    from kobato_eyes_tpu_torch.dup.audit import audit_clusters, summarize
+    from kobato_eyes_tpu_torch.dup.engine import TpuDuplicateScanner
+    from kobato_eyes_tpu_torch.dup.types import DuplicateFileMeta, DuplicateScanConfig
+    from kobato_eyes_tpu_torch.index.flat import FlatIndex, find_similar
+    from kobato_eyes_tpu_torch.ops import pairwise_hamming
+    from kobato_eyes_tpu_torch.query import engine
+
+    t_phase = time.perf_counter()
+    # 1. /search on the 20 000-file catalog; a general threshold f32 holds
+    # exactly, so that f32 and f64 comparisons agree
+    db = work / "parity" / "catalog.sqlite3"
+    conn = bootstrap(db)
+    set_tag_threshold(conn, 0, 0.375)
+    conn.commit()
+    t0 = time.perf_counter()
+    served = _Served(db)
+    print(f"serve: 20 000-file catalog warm (epoch build) in {time.perf_counter() - t0:.2f} s")
+    try:
+        thr = load_tag_thresholds(conn)
+        check(served.core._thresholds == thr, "serve: thresholds")
+        queries = _parity_queries()
+        hits = 0
+        for i, query in enumerate(queries):
+            order_by = ORDERINGS[i % 4]
+            limit, offset = ((1000, 0), (50, 7), (200, 0))[i % 3]
+            route = (f"/search?q={urllib.parse.quote(query)}&order={order_by}&limit={limit}&offset={offset}")
+            got = _http_json(served.base, route)["results"]
+            sql = _sql_rows(conn, query, thr, order_by, limit, offset)
+            check([(r["file_id"], r["path"]) for r in got] == [(r.file_id, r.path) for r in sql],
+                  f"serve /search {query!r} {order_by}: rows differ from the SQL backend's")
+            if order_by == "relevance":
+                check(all(abs(r["relevance"] - s.relevance) <= 1e-9 for r, s in zip(got, sql)),
+                      f"serve /search {query!r}: relevance differs from the SQL backend's")
+            hits += len(got)
+        batch = _http_json(served.base, "/search", {"queries": queries, "limit": 100, "offset": 3})["batches"]
+        singles = [_http_json(served.base, f"/search?q={urllib.parse.quote(q)}&limit=100&offset=3")["results"]
+                   for q in queries]
+        check([b["results"] for b in batch] == singles and [b["query"] for b in batch] == queries,
+              "serve: POST /search batch != the singles")
+        print(f"serve /search: {len(queries)} queries equal the SQL backend row for row ({hits} rows); "
+              f"the POST batch of {len(queries)} equals the singles")
+        q = "tag_0000 OR tag_0001"
+        route = f"/search?q={urllib.parse.quote(q)}&limit=50"
+        http_ms = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            _http_json(served.base, route)
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+        epoch = served.core._manager.current
+        local_ms = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            engine.search_epoch(epoch, q, thresholds=thr, limit=50)
+            local_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"serve /search {q!r} limit 50 at 20 000 files: HTTP p50 {np.percentile(http_ms, 50):.3f} ms "
+              f"(p90 {np.percentile(http_ms, 90):.3f}), in-process search_epoch p50 {np.percentile(local_ms, 50):.3f} "
+              f"ms (p90 {np.percentile(local_ms, 90):.3f}), host clock, 50 requests each")
+    finally:
+        served.close()
+        conn.close()
+
+    # 2. /dup?audit=1 on the dup CLI phase's catalog against ket dup --audit
+    data = work / "dup_data"
+    cfg = work / "dup_settings.yaml"
+    export = work / "dup_export.csv"
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        run_cli(["--config", str(cfg), "--data-dir", str(data), "--device", DEVICE, "dup", "--audit",
+                 "--export", str(export)])
+    cli_clusters: dict[int, list] = {}
+    with export.open(newline="", encoding="utf-8") as fh:
+        for row in csv.DictReader(fh):
+            cli_clusters.setdefault(int(row["cluster"]), []).append((int(row["file_id"]), int(row["hamming"])))
+    cli_summary = [line for line in err.getvalue().splitlines() if line.startswith(("audit:", "diameter:"))]
+    db = data / "db" / "catalog.sqlite3"
+    served = _Served(db, data_root=data)
+    try:
+        pairwise_hamming.launches = 0
+        dup = _http_json(served.base, "/dup?audit=1&limit=100000")
+        k5 = pairwise_hamming.launches
+        got_clusters = [[(m["file_id"], m["hamming"]) for m in c["members"]] for c in dup["clusters"]]
+        check(got_clusters == [cli_clusters[k] for k in sorted(cli_clusters)],
+              "serve /dup clusters != ket dup --audit --export")
+        conn = bootstrap(db)
+        metas = [DuplicateFileMeta(file_id=int(r["id"]), path=Path(r["path"]), size=r["size"], width=r["width"],
+                                   height=r["height"], phash=r["phash_u64"])
+                 for r in iter_files_for_dup(conn) if r["phash_u64"] is not None]
+        conn.close()
+        want = audit_clusters(TpuDuplicateScanner(DuplicateScanConfig(), device=DEVICE).build_clusters(metas),
+                              device=DEVICE)
+        want_json = [{"keeper_id": s.keeper_id, "size": s.size, "diameter": s.diameter,
+                      "mean_distance": round(s.mean_distance, 3), "keeper_max": s.keeper_max} for s in want]
+        check(dup["audit"] == want_json, "serve /dup audit != audit_clusters of the CLI's clusters")
+        check(summarize(want).splitlines()[:2] == cli_summary, "ket dup --audit summary != the audit")
+        check(k5 > 0, "serve /dup?audit=1 launched no pairwise_hamming kernel")
+        print(f"serve /dup?audit=1: {dup['total_clusters']} clusters and their audit equal ket dup --audit's "
+              f"({cli_summary[0]}); pairwise_hamming launches {k5}; {dup['elapsed_ms']} ms in the server")
+        refined = _http_json(served.base, "/dup?audit=1&refine=1")
+        print(f"serve /dup?audit=1&refine=1: {refined['refined_clusters']} of {refined['total_clusters']} "
+              f"clusters kept, {len(refined.get('audit', []))} audited")
+
+        # 4. /delta and /reload after files are added, /trash, /file, /thumb
+        health = _http_json(served.base, "/healthz")
+        lib = work / "dup_library"
+        sources = sorted(lib.glob("*.png"))[:3]
+        new_paths = []
+        for k, src in enumerate(sources):
+            dst = lib / f"served_new_{k}.png"
+            shutil.copyfile(src, dst)
+            new_paths.append(dst)
+        conn = bootstrap(db)
+        new_ids = [upsert_file(conn, path=str(p), size=p.stat().st_size, mtime=p.stat().st_mtime)
+                   for p in new_paths]
+        write_tagging_batch(conn, [TaggingItem(file_id=f, tags=[("served_new", 0.875, 0)], tagger_sig="serve")
+                                   for f in new_ids])
+        conn.commit()
+        conn.close()
+        delta = _http_json(served.base, "/delta", {"changed_file_ids": new_ids})
+        check(delta["epoch"] == health["epoch"] + 1 and delta["files"] == health["files"] + 3, f"/delta {delta}")
+        found = {r["file_id"] for r in _http_json(served.base, "/search?q=served_new")["results"]}
+        check(found == set(new_ids), f"/search after /delta: {found} != {new_ids}")
+        reload = _http_json(served.base, "/reload", {})
+        check(reload["epoch"] == delta["epoch"] + 1 and reload["files"] == delta["files"], f"/reload {reload}")
+        trash = _http_json(served.base, "/trash", {"file_ids": [new_ids[0]]})
+        check(trash["trashed"] == [new_ids[0]] and not new_paths[0].exists(), f"/trash {trash}")
+        _http_json(served.base, "/reload", {})
+        found = {r["file_id"] for r in _http_json(served.base, "/search?q=served_new")["results"]}
+        check(found == set(new_ids[1:]), f"/search after /trash and /reload: {found}")
+        info = _http_json(served.base, f"/file?id={new_ids[1]}")
+        check(info["path"] == str(new_paths[1]) and [t["name"] for t in info["tags"]] == ["served_new"],
+              f"/file {info}")
+        status, ctype, body = _http(served.base, f"/thumb?id={new_ids[1]}&size=128")
+        check(status == 200 and ctype == "image/webp" and len(body) > 0, f"/thumb: {status} {ctype}")
+        thumb = Image.open(io.BytesIO(body))
+        check(max(thumb.size) <= 128, f"/thumb size {thumb.size}")
+        print(f"serve: /delta (+3 files) epoch {delta['epoch']}, /reload epoch {reload['epoch']}, /trash moved "
+              f"1 file out of the next /search, /file and /thumb ({thumb.size[0]}x{thumb.size[1]} webp) answer")
+    finally:
+        served.close()
+
+    # 3. /similar on the ANN phase's catalog against find_similar
+    db = work / "data_ann" / "db" / "catalog.sqlite3"
+    conn = bootstrap(db)
+    ids, vecs = load_embeddings(conn)
+    flat = FlatIndex(vecs, ids, device=DEVICE)
+    served = _Served(db)
+    try:
+        for fid in [int(i) for i in ids[:: max(1, len(ids) // 5)][:5]]:
+            got = _http_json(served.base, f"/similar?id={fid}&k=10")["results"]
+            want = find_similar(flat, load_embedding(conn, fid), exclude_id=fid, k=10)
+            check([(r["file_id"], r["score"]) for r in got] == [(f, round(s, 4)) for f, s in want],
+                  f"serve /similar?id={fid} != find_similar")
+        print(f"serve /similar: 5 files' 10 neighbours equal find_similar over {len(ids)} stored embeddings; "
+              f"serve phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        served.close()
+        conn.close()
+    return k5
+
+
 def _rows_agree(want: dict, got: dict, paths, tagger, tol: float) -> tuple[int, float, list]:
     """Two runs' tag rows of ``paths``: how many files agree bit for bit, the
     largest score difference of a tag both kept, and each tag one run kept
@@ -2578,15 +3108,16 @@ def main() -> int:
     attn, attn_separate = attention_phase()
     window = window_attention_phase()
     ln = layernorm_residual_phase()
+    act = gelu_phase()
     hamming = pairwise_hamming_phase()
-    kernels = [attn, attn_separate, window, ln, hamming]
+    kernels = [attn, attn_separate, window, ln, hamming, act]
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_root))
     try:
         lib, labels, cfg = write_workspace(work)
-        attn["launches"], sep_vit = slice_phase(work, lib, labels, cfg)
-        window["launches"], sep_swin, ln["launches"] = swin_phase(work, lib, labels, cfg)
+        attn["launches"], sep_vit, gelu_vit = slice_phase(work, lib, labels, cfg)
+        window["launches"], sep_swin, ln["launches"], gelu_swin = swin_phase(work, lib, labels, cfg)
         query_cli_phase(work, lib, labels, cfg)
         hamming["launches"] = dup_scan_phase()
         dup_cli_phase(work)
@@ -2594,10 +3125,13 @@ def main() -> int:
         query_scale_phase()
         ann_launches, sep_ann = ann_phase(work, lib, labels)
         check(ann_launches == attn["launches"], "attention launches of the ANN index run")
+        gelu_train, train_attn = train_phase(work, lib)  # before upkeep changes the library
         up_attn, up_window, sep_up = upkeep_phase(work, lib, labels, cfg)
-        attn["launches"] += up_attn
+        attn["launches"] += up_attn + train_attn
         window["launches"] += up_window
         attn_separate["launches"] = sep_vit + sep_swin + sep_ann + sep_up
+        act["launches"] = gelu_vit + gelu_swin + gelu_train
+        hamming["launches"] += serve_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,7 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-Counterpart of ``kobato_eyes_tpu/cli.py``, every command but ``serve`` and
-``train``: ``index`` (scan + tag + write, with fused signatures and, with
+Counterpart of ``kobato_eyes_tpu/cli.py``, all 19 commands: ``index``
+(scan + tag + write, with fused signatures and, with
 ``index.enabled``, fused CLIP embeddings), ``refresh`` and ``retag`` (the
 upkeep flows), ``watch`` (tag files as they appear), ``search`` over the
 device query engine (the default backend) or SQL, with CSV export and result
@@ -12,7 +12,10 @@ scan, sweep, refinement, cohesion audit, export, trash), ``stats``,
 ``import-weights`` (a .pt/.pth/.safetensors/.onnx file -> the port's
 checkpoint directory, which ``tagger.model_path`` and ``index.checkpoint``
 name), ``inspect`` and ``validate-checkpoint`` (import -> exact-vs-fast
-parity -> tag flips; the CLIP embedder's lane).
+parity -> tag flips; the CLIP embedder's lane), ``serve`` (the JSON API
+over a resident epoch) and ``train`` (fine-tune a ViT tagger on the
+library's own tags into a checkpoint directory ``tagger.model_path`` can
+name).
 
 Usage: ``python -m kobato_eyes_tpu_torch.cli [--device cuda|cpu] <command> ...``
 """
@@ -464,6 +467,31 @@ def cmd_thresholds(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Fine-tune a tagger on the indexed library's own labels."""
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.core.finetune import finetune_from_catalog
+
+    out = args.out or str(
+        get_app_paths(args.data_dir or settings.data_dir).ensure().index_dir
+        / f"finetuned_{time.strftime('%Y%m%d_%H%M%S')}"
+    )
+    result = finetune_from_catalog(
+        db,
+        preset=args.preset, image_size=args.image_size, epochs=args.epochs,
+        batch_size=args.batch_size, learning_rate=args.lr,
+        min_tag_count=args.min_tag_count, limit=args.limit,
+        io_workers=settings.pipeline.io_workers, checkpoint_out=out, device=args.device,
+    )
+    print(json.dumps({
+        "files": result.files, "labels": result.labels, "steps": result.steps,
+        "first_loss": result.first_loss, "final_loss": result.final_loss,
+        "checkpoint": result.checkpoint, "labels_csv": result.labels_csv,
+        "elapsed_sec": round(result.elapsed_sec, 1),
+    }))
+    return 0
+
+
 def cmd_inspect(args) -> int:
     """Model/checkpoint inspection (label family, counts, an .onnx file's
     weight inventory)."""
@@ -631,6 +659,18 @@ def cmd_watch(args) -> int:
         pass
     finally:
         pipe.stop()
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Serve search/complete/stats as a JSON API over the resident epoch."""
+    settings, db = _load_env(args)
+    from kobato_eyes_tpu_torch.services.server import serve_forever
+
+    logging.basicConfig(level=logging.INFO)
+    root = get_app_paths(args.data_dir or settings.data_dir).root
+    serve_forever(db, args.host, args.port, data_root=root,
+                  refine_settings=settings.refine, device=args.device)
     return 0
 
 
@@ -854,8 +894,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", help="settings.yaml path")
     parser.add_argument("--data-dir", help="data directory override")
     parser.add_argument("--device", default="cuda",
-                        help="torch device for the tagger, signatures, the dup scan, the query epoch "
-                             "and the ANN embedder and indexes "
+                        help="torch device for the tagger, signatures, the dup scan, the query epoch, "
+                             "the ANN embedder and indexes, the server and training "
                              "(default cuda; 'cpu' to run without a GPU)")
     parser.add_argument("-v", "--verbose", action="store_true")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -921,6 +961,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--set", action="append", metavar="CAT=VALUE")
     p.set_defaults(fn=cmd_thresholds)
 
+    p = sub.add_parser("train", help="fine-tune a tagger on the library's labels")
+    p.add_argument("--preset", default="base")
+    p.add_argument("--image-size", type=int, default=448)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--min-tag-count", type=int, default=1)
+    p.add_argument("--limit", type=int)
+    p.add_argument("--out", help="checkpoint output directory")
+    p.set_defaults(fn=cmd_train)
+
     p = sub.add_parser("inspect", help="inspect a tagger checkpoint / label file")
     p.add_argument("--checkpoint")
     p.add_argument("--labels")
@@ -961,6 +1012,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("repl", help="interactive query loop (resident epoch)")
     p.add_argument("--limit", type=int, default=20)
     p.set_defaults(fn=cmd_repl)
+
+    p = sub.add_parser("serve", help="HTTP JSON API over the resident epoch")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8787)
+    p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("config", help="show or init settings")
     p.add_argument("--init", action="store_true")

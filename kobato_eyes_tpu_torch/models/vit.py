@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kobato_eyes_tpu_torch.ops.gelu import gelu
+
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
@@ -110,23 +112,13 @@ def vit_forward_flops(cfg: ViTConfig, batch_size: int, *, with_head: bool = True
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu(x, approximate=True)`` as JAX writes it, op by op in x's
-    dtype: ``x * 0.5 * (1 + tanh(c * (x + 0.044715 * x**3)))`` with the
-    constants rounded to x's dtype and every step rounded as XLA rounds it.
-
-    ``F.gelu(x, approximate="tanh")`` rounds once and differs from XLA on
-    about 43% of bf16 entries; this form matches XLA's CPU result on all of
-    200 000 bf16 values of N(0, 9) (``tests/test_torch_vit.py``). It costs
-    several elementwise passes on the card, which a fused kernel would save.
-    """
-    c, k = _gelu_tanh_constants(x.dtype)
-    inner = c * (x + k * (x * x * x))
-    return x * (0.5 * (1.0 + torch.tanh(inner)))
-
-
-def _gelu_tanh_constants(dtype: torch.dtype) -> tuple[float, float]:
-    """sqrt(2/pi) and 0.044715 rounded to ``dtype``."""
-    return _dtype_constant(math.sqrt(2.0 / math.pi), dtype), _dtype_constant(0.044715, dtype)
+    """``jax.nn.gelu(x, approximate=True)`` as XLA evaluates it: every step
+    rounded to x's dtype with the constants rounded to it
+    (``ops/gelu.py``; one CUDA pass on the card). ``F.gelu(x,
+    approximate="tanh")`` rounds once and differs from XLA on about 43% of
+    bf16 entries; this form on none of 200 000 bf16 values of N(0, 9)
+    (``tests/test_torch_vit.py``)."""
+    return gelu(x, approximate=True)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -232,10 +224,8 @@ class Mlp(nn.Module):
         h = self.fc1(x)
         if self.act == "quick_gelu":  # OpenAI CLIP: x * sigmoid(1.702 x)
             h = quick_gelu(h)
-        elif self.act == "gelu_tanh":
-            h = gelu_tanh(h)
-        else:
-            h = F.gelu(h)
+        else:  # XLA's erf or tanh sequence (ops/gelu.py): F.gelu rounds once
+            h = gelu(h, approximate=self.act == "gelu_tanh")
         return self.fc2(h)
 
 

@@ -25,6 +25,13 @@ def abs_diff_sums(a: np.ndarray, b: np.ndarray, *, device=None) -> np.ndarray:
     return (ta - tb).abs().sum(dim=(1, 2), dtype=torch.int32).cpu().numpy()
 
 
+def mae01_batch(a: np.ndarray, b: np.ndarray, *, device=None) -> np.ndarray:
+    """(B, H, W) uint8 pairs -> (B,) float64 MAE in 0..1 (reference order)."""
+    sums = abs_diff_sums(a, b, device=device).astype(np.float64)
+    n = a.shape[1] * a.shape[2]
+    return (sums / n) / 255.0
+
+
 def mae01_np(a: np.ndarray, b: np.ndarray) -> float:
     """Reference formula (dup_refine_parallel.py:211-213)."""
     return float(np.mean(np.abs(a.astype(np.int16) - b.astype(np.int16))) / 255.0)

@@ -58,6 +58,12 @@ def tile_hamming_words(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return _POP8[xor].reshape(*xor.shape[:-1], -1).sum(axis=-1)
 
 
+
+def tile_ahash_int(gray: np.ndarray, *, grid: int, tile: int, device=None) -> int:
+    """Single-image helper mirroring the reference's int return."""
+    words = tile_ahash_batch(gray[None], grid=grid, tile=tile, device=device)[0]
+    return words_to_int(words)
+
 # ---------------------------------------------------------------------------
 # numpy reference (executable spec)
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@
   library in an import;
 * the port keeps the JAX package's layering;
 * each host module the port copies equals its JAX counterpart after the
-  package rename; the copied C++ sources equal theirs byte for byte.
+  package rename, and so does each host function a port module copies; the
+  copied C++ sources equal theirs byte for byte.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ JAXPKG = ROOT / "kobato_eyes_tpu"
 FORBIDDEN_ROOTS = {"kobato_eyes_tpu", "jax", "jaxlib", "flax", "optax", "orbax"}
 
 # modules the jax-blocked import must have reached, the SwinV2, dup,
-# query-engine, ANN and checkpoint / upkeep slices' among them
+# query-engine, ANN, checkpoint / upkeep and server / training / refine
+# slices' among them
 REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.ops.attention",
     "kobato_eyes_tpu_torch.ops.window_attention",
@@ -63,6 +65,13 @@ REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.core.pipeline.maintenance",
     "kobato_eyes_tpu_torch.db.admin",
     "kobato_eyes_tpu_torch.utils.crash",
+    "kobato_eyes_tpu_torch.ops.gelu",
+    "kobato_eyes_tpu_torch.ops.ssim",
+    "kobato_eyes_tpu_torch.models.train",
+    "kobato_eyes_tpu_torch.core.finetune",
+    "kobato_eyes_tpu_torch.services.server",
+    "kobato_eyes_tpu_torch.dup.refine",
+    "kobato_eyes_tpu_torch.dup.cluster",
 ]
 
 COPIED = [
@@ -83,7 +92,13 @@ COPIED = [
     "utils/export.py", "query/__init__.py",
     "index/hnsw.py", "core/pipeline/embed_stage.py",
     "models/onnx_import.py", "models/inspection.py", "core/jobs.py", "db/admin.py",
-    "utils/crash.py",
+    "utils/crash.py", "dup/cluster.py",
+]
+# host code a port module copies from its JAX counterpart: (module, top-level
+# function or class), equal after the package rename
+COPIED_DEFINITIONS = [
+    ("core/finetune.py", "_load_training_set"),
+    ("core/finetune.py", "FinetuneResult"),
 ]
 # host C++ sources, compared byte for byte
 COPIED_BYTES = ["native/hamming_scan.cpp", "native/assembly.cpp", "native/catalog_fetch.cpp",
@@ -188,6 +203,20 @@ def test_copied_module_equals_reference(rel):
     original = (JAXPKG / rel).read_text(encoding="utf-8")
     expected = re.sub(r"\bkobato_eyes_tpu\b", "kobato_eyes_tpu_torch", original)
     assert (PORT / rel).read_text(encoding="utf-8") == expected
+
+
+def _definition(path: Path, name: str) -> str:
+    source = path.read_text(encoding="utf-8")
+    for node in ast.parse(source).body:
+        if getattr(node, "name", None) == name:
+            return ast.get_source_segment(source, node)
+    raise AssertionError(f"{path} has no top-level {name}")
+
+
+@pytest.mark.parametrize("rel,name", COPIED_DEFINITIONS, ids=lambda v: v)
+def test_copied_definition_equals_reference(rel, name):
+    expected = re.sub(r"\bkobato_eyes_tpu\b", "kobato_eyes_tpu_torch", _definition(JAXPKG / rel, name))
+    assert _definition(PORT / rel, name) == expected
 
 
 @pytest.mark.parametrize("rel", COPIED_BYTES)

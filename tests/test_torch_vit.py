@@ -18,6 +18,7 @@ from kobato_eyes_tpu.models import import_weights as jimport
 from kobato_eyes_tpu.models import vit as jvit
 from kobato_eyes_tpu_torch.models import import_weights as timport
 from kobato_eyes_tpu_torch.models import vit as tvit
+from kobato_eyes_tpu_torch.ops import gelu as tgelu
 
 torch.set_num_threads(1)
 
@@ -84,16 +85,12 @@ def test_features_only_parity_f32():
 
 @pytest.mark.parametrize("attn_impl", ["einsum", "pallas"])
 def test_forward_parity_bf16(attn_impl):
-    """bf16 logits of magnitude ~1.5 agree to 4e-2 (5 bf16 ulps there).
-
-    The bf16 products, LayerNorms and attention are bit-exact between the
-    packages (test_bf16_layers_match_except_activation); the activations
-    round 1 ulp apart on about a third of their entries, and that spreads to
-    up to 0.031 in the logits (measured over 4 seeds at the tiny preset, 64
-    px). That exceeds the 2e-2 the JAX package holds its own knobs to, and is
-    logged as a parity fault in ROADMAP.md."""
+    """bf16 logits of magnitude ~1.5 agree to 3e-2, the JAX package's
+    tolerance for its bf16 forward: measured up to 0.0176 over 4 weight
+    seeds. The erf gelu follows XLA's compiled sequence (``ops/gelu.py``);
+    with ``F.gelu``, which rounds once, this was 0.031."""
     got, want = _forward_both("bf16", attn_impl=attn_impl)
-    np.testing.assert_allclose(got, want, atol=4e-2)
+    np.testing.assert_allclose(got, want, atol=3e-2)
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -110,9 +107,10 @@ def test_forward_parity_bf16_gelu_tanh(attn_impl, seed):
 def test_gelu_tanh_matches_xla_bit_for_bit_in_bf16():
     """``jax.nn.gelu(approximate=True)`` on 200 000 bf16 values of N(0, 9):
     the port's op-by-op form equals XLA's on every one, where
-    ``F.gelu(x, approximate="tanh")``, one rounding, differs on 42.7%. The
-    exact erf form stays a parity fault (ROADMAP queue 3): ``F.gelu`` differs
-    from XLA's on 40.9% of these values."""
+    ``F.gelu(x, approximate="tanh")``, one rounding, differs on 42.7%.
+    ``F.gelu`` differs from XLA's erf form on 40.9% of these values, which is
+    why the port evaluates that form as XLA does too
+    (``tests/test_torch_gelu.py``)."""
     x = (np.random.default_rng(0).normal(size=200_000) * 3).astype(np.float32)
     xt = torch.from_numpy(x).to(torch.bfloat16)
     want = np.asarray(jax.nn.gelu(jnp.asarray(x, jnp.bfloat16), approximate=True), np.float32)
@@ -173,7 +171,7 @@ def test_bf16_layers_match_except_activation():
             mlp.fc1.weight.copy_(torch.eye(128, 64))  # fc1 passes x through
             mlp.fc1.bias.zero_()
             got = mlp.fc1(xt)
-            got = {"gelu": lambda v: torch.nn.functional.gelu(v),
+            got = {"gelu": lambda v: tgelu.gelu(v, approximate=False),
                    "gelu_tanh": tvit.gelu_tanh,
                    "quick_gelu": lambda v: v * torch.sigmoid(1.702 * v)}[act](got)
         want = np.asarray(jax_fn(xj), np.float32)
