@@ -687,19 +687,24 @@ def layernorm_residual_phase() -> dict:
 VIT_GELU = (BATCH * 785, 3072)
 SWIN_GELU = tuple((BATCH * (112 >> s) ** 2, 512 << s) for s in range(4))
 # f32 operations an element by the path it takes (a fused multiply-add counts
-# two, exp / tanh / a division one each): erf |z| < 1, erf |z| >= 1, tanh
-GELU_OPS = {"erf_small": 20, "erf_big": 46, "tanh": 12}
+# two, exp / tanh / a division one each): erf |z| < 1, erf |z| >= 1, tanh;
+# the gradient's are erfc's and 12 more (erf), 22 (tanh)
+GELU_OPS = {"erf_small": 20, "erf_big": 46, "tanh": 12, "erf_small_bwd": 32, "erf_big_bwd": 58, "tanh_bwd": 22}
 
 
-def gelu_phase() -> dict:
-    """The GELU pass (erf and tanh forms, bf16 and f32) against its plain
-    version at ViT-B/448's and SwinV2-B/448's MLP shapes: the count of
-    differing elements, printed and bounded; the scalar body on a view off
-    alignment and a ragged tail; times of the kernel, the plain sequence and
-    ``F.gelu`` at each shape; then the ViT-B/448 and SwinV2-B/448 forwards at
-    batch 32 with the kernel, with the plain op-by-op sequence and with
-    ``F.gelu`` in its place. Returns the kernel's entry (the tanh form at the
-    ViT-B/448 shape, the form of the index runs' fast forward)."""
+def gelu_phase() -> tuple[dict, dict]:
+    """The GELU pass and its backward pass (erf and tanh forms, bf16 and f32)
+    against their plain versions at ViT-B/448's, the train step's and
+    SwinV2-B/448's MLP shapes: the count of differing elements, printed and
+    bounded; the scalar body on views off alignment and ragged tails; times
+    of the kernel, the plain sequence and ``F.gelu`` at each shape, and of
+    the backward kernel, its plain sequence and ``aten.gelu_backward`` at the
+    train step's; then the ViT-B/448 and SwinV2-B/448 forwards at batch 32
+    with the kernel, with the plain op-by-op sequence and with ``F.gelu`` in
+    its place. Returns the two kernels' entries: the forward's (the tanh form
+    at the ViT-B/448 shape, the form of the index runs' fast forward) and the
+    backward's (the erf form in bf16 at the train step's shape, which
+    training runs)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -718,64 +723,85 @@ def gelu_phase() -> dict:
     def plain(x, approximate):
         return gelu.gelu_tanh_plain(x) if approximate else gelu.gelu_erf_plain(x)
 
-    def compare(name, x, approximate, expect, variant=None):
-        ran = variant or gelu.kernel_variant(x, x)
+    def plain_backward(x, g, approximate):
+        backward = gelu.gelu_tanh_backward_plain if approximate else gelu.gelu_erf_backward_plain
+        return backward(x, g)
+
+    def compare(name, x, approximate, expect, g=None):
+        """The forward kernel, or with ``g`` the backward kernel, against its
+        plain version: the count of differing elements, printed and bounded."""
+        ran = gelu.kernel_variant(x, x) if g is None else gelu.kernel_variant(x, g, x)
         check(ran == expect, f"gelu {name}: runs {ran}, expected {expect}")
-        got = gelu.gelu_forward(x, approximate=approximate, variant=variant)
-        want = plain(x, approximate)
+        if g is None:
+            got, want = gelu.gelu_forward(x, approximate=approximate), plain(x, approximate)
+        else:
+            got = gelu.gelu_backward(x, g, approximate=approximate)
+            want = plain_backward(x, g, approximate)
         torch.cuda.synchronize()
         check(got.dtype == x.dtype and got.shape == x.shape, f"gelu {name}: dtype/shape")
         check(bool(torch.isfinite(got).all()), f"gelu {name}: non-finite output")
-        g, w = got.float(), want.float()
-        diff = g != w
-        n_diff = int(diff.sum())
-        err = float((g - w).abs().max())
+        gf, w = got.float(), want.float()
+        n_diff = int((gf != w).sum())
+        err = float((gf - w).abs().max())
         # the plain version's fused multiply-adds go through f64 and round
         # twice: one in ~1e9 can sit one f32 step off, which a later step
         # can carry to a few f32 steps of the input's magnitude (1 + tanh
-        # cancels) or the bf16 rounding to one bf16 step
+        # cancels; in the gradient, terms up to |g| (1 + |x|)^3 cancel) or
+        # the bf16 rounding to one bf16 step
         step = 2.0**-7 if x.dtype == torch.bfloat16 else 2.0**-21
-        within = bool(((g - w).abs() <= step * torch.maximum(x.float().abs(), w.abs())).all())
+        xa = x.float().abs()
+        scale = torch.maximum(xa, w.abs()) if g is None else w.abs() + g.float().abs() * (1 + xa) ** 3
+        within = bool(((gf - w).abs() <= step * scale).all())
         bound = 4 + x.numel() // 10**6
-        tol = "one bf16 step each" if x.dtype == torch.bfloat16 else "2^-21 of the input's magnitude each"
-        print(f"gelu {name} [{ran}]: {n_diff} of {x.numel()} elements differ from the plain version "
-              f"(bound {bound}, {tol}), max_abs_err={err:.3e}")
+        tol = "one bf16 step each" if x.dtype == torch.bfloat16 else "2^-21 of the terms' magnitude each"
+        print(f"gelu{'' if g is None else ' backward'} {name} [{ran}]: {n_diff} of {x.numel()} elements differ "
+              f"from the plain version (bound {bound}, {tol}), max_abs_err={err:.3e}")
         check(n_diff <= bound and within, f"gelu {name}: {n_diff} elements differ (bound {bound}) or not within {tol}")
         return err
 
-    errs = {}
-    for shape in (VIT_GELU,) + SWIN_GELU:
+    errs, bwd_errs = {}, {}
+    for shape in (VIT_GELU, TRAIN_GELU) + SWIN_GELU:
         for dtype in (torch.bfloat16, torch.float32):
             x = inputs(shape, dtype)
+            g = inputs(shape, dtype)
             for approximate in (True, False):
                 form = "tanh" if approximate else "erf"
                 name = f"{form} {shape} {str(dtype).split('.')[-1]}"
-                errs[(shape, dtype, approximate)] = compare(name, x, approximate, "vec")
-            del x
+                if shape != TRAIN_GELU:
+                    errs[(shape, dtype, approximate)] = compare(name, x, approximate, "vec")
+                bwd_errs[(shape, dtype, approximate)] = compare(name, x, approximate, "vec", g)
+            del x, g
     # the scalar body and the vec body's tail: a view 2 bytes off a 16-byte
     # boundary, element counts that leave a partial last chunk
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
         for approximate in (True, False):
             form = "tanh" if approximate else "erf"
-            base = inputs(1 << 20, dtype)
-            off = base[1:].view(1023, 1025)  # contiguous, starts one element in
+            base, gbase = inputs(1 << 20, dtype), inputs(1 << 20, dtype)
+            off, goff = base[1:].view(1023, 1025), gbase[1:].view(1023, 1025)  # start one element in
             check(gelu.kernel_variant(off, off) == "scalar", "gelu: misaligned view runs vec")
             compare(f"{form} misaligned view {dt}", off, approximate, "scalar")
-            compare(f"{form} 1001 elements {dt}", inputs(1001, dtype), approximate, "vec")
-            compare(f"{form} 7 elements {dt}", inputs(7, dtype), approximate, "vec")
-            compare(f"{form} forced scalar {dt}", inputs((97, 3072), dtype), approximate, "scalar",
-                    variant="scalar")
+            compare(f"{form} misaligned view {dt}", off, approximate, "scalar", goff)
+            compare(f"{form} misaligned gradient {dt}", base[:-1].view(1023, 1025), approximate, "scalar", goff)
+            for n in (1001, 7):
+                x, g = inputs(n, dtype), inputs(n, dtype)
+                compare(f"{form} {n} elements {dt}", x, approximate, "vec")
+                compare(f"{form} {n} elements {dt}", x, approximate, "vec", g)
     special = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, -2.0, -13.25, 30.0, -30.0, 1e30, -1e30,
                             float("inf"), float("-inf"), float("nan")], device=dev)
     for dtype in (torch.bfloat16, torch.float32):
         for approximate in (True, False):
             s = special.to(dtype)
-            got = gelu.gelu_forward(s, approximate=approximate).float()
-            want = plain(s, approximate).float()
-            same = bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
-            check(same, f"gelu special values {dtype} approximate={approximate}: {got} != {want}")
-    print("gelu special values (0, -0, +-1, +-2, -13.25, +-30, +-1e30, +-inf, nan): equal to the plain version")
+            ones = torch.ones_like(s)
+            for kind, got, want in (
+                ("forward", gelu.gelu_forward(s, approximate=approximate), plain(s, approximate)),
+                ("backward", gelu.gelu_backward(s, ones, approximate=approximate), plain_backward(s, ones, approximate)),
+            ):
+                got, want = got.float(), want.float()
+                same = bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+                check(same, f"gelu {kind} special values {dtype} approximate={approximate}: {got} != {want}")
+    print("gelu forward and backward special values (0, -0, +-1, +-2, -13.25, +-30, +-1e30, +-inf, nan): "
+          "equal to the plain version")
 
     # times at each shape: kernel and F.gelu through a CUDA graph over input
     # sets that together exceed the L2 several times, the plain sequence call
@@ -808,6 +834,37 @@ def gelu_phase() -> dict:
                 rows[(shape, dtype, approximate)] = (ms, plain_ms, lib_ms, t_ops, t_bytes)
             del sets
 
+    # the backward's times at the train step's shape: the kernel, the plain
+    # sequence and torch's own gelu_backward (one rounding), as above
+    bwd_rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        n = TRAIN_GELU[0] * TRAIN_GELU[1]
+        bytes_moved = 3 * n * torch.tensor([], dtype=dtype).element_size()
+        sets = [(inputs(TRAIN_GELU, dtype), inputs(TRAIN_GELU, dtype))
+                for _ in range(max(2, min(8, -(-400_000_000 // bytes_moved))))]
+        for approximate in (True, False):
+            form = "tanh" if approximate else "erf"
+            ms = cuda_graph_ms([lambda a=a, b=b: gelu.gelu_backward(a, b, approximate=approximate)
+                                for a, b in sets] * 2)
+            lib_ms = cuda_graph_ms([lambda a=a, b=b: torch.ops.aten.gelu_backward(
+                b, a, approximate=form if approximate else "none") for a, b in sets] * 2)
+            plain_ms = cuda_ms(lambda: plain_backward(*sets[0], approximate), iters=2, warmup=1)
+            if approximate:
+                ops = GELU_OPS["tanh_bwd"] * n
+            else:
+                small = int(((sets[0][0].float().abs() * 0.7071067811865476) < 1).sum())
+                ops = GELU_OPS["erf_small_bwd"] * small + GELU_OPS["erf_big_bwd"] * (n - small)
+            t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_FLOPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            print(f"gelu backward {form} {TRAIN_GELU} {str(dtype).split('.')[-1]}: kernel {ms:.4f} ms "
+                  f"({ms / bound:.2f}x the bound, {bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s), "
+                  f"aten.gelu_backward {lib_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'}: {bytes_moved / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} GFLOP)")
+            bwd_rows[(dtype, approximate)] = (ms, plain_ms, lib_ms, t_ops, t_bytes)
+        del sets
+
     # the forwards at batch 32: the kernel (this tree), the plain op-by-op
     # sequence in its place, and F.gelu in its place
     labels = synthetic_labels(N_LABELS)
@@ -836,20 +893,24 @@ def gelu_phase() -> dict:
         print(f"{arch}-b448 batch-{BATCH} forward_probs: " + ", ".join(line))
         del fast, exact
 
-    ms, plain_ms, lib_ms, t_ops, t_bytes = rows[(VIT_GELU, torch.bfloat16, True)]
-    return {
-        "name": "gelu",
-        "route": "cuda",
-        "source": "kobato_eyes_tpu_torch/csrc/gelu.cu",
-        "replaces": "kobato_eyes_tpu/models/vit.py:225",
-        "launches": None,  # filled from the main paths' runs
-        "max_abs_err": max(errs.values()),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops > t_bytes else "bytes",
-        "library_ms": lib_ms,
-    }
+    def entry(name, row, err):
+        ms, plain_ms, lib_ms, t_ops, t_bytes = row
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "kobato_eyes_tpu_torch/csrc/gelu.cu",
+            "replaces": "kobato_eyes_tpu/models/vit.py:225",
+            "launches": None,  # filled from the main paths' runs
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": lib_ms,
+        }
+
+    return (entry("gelu", rows[(VIT_GELU, torch.bfloat16, True)], max(errs.values())),
+            entry("gelu_backward", bwd_rows[(torch.bfloat16, False)], max(bwd_errs.values())))
 
 
 def pairwise_hamming_phase() -> dict:
@@ -2703,9 +2764,11 @@ def upkeep_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, i
 
 TRAIN_BATCH = 16
 TRAIN_SIZE = 448
+# the train step's MLP activation (ViT-B/448, batch 16): the GELU backward's shape
+TRAIN_GELU = (TRAIN_BATCH * 785, 3072)
 
 
-def train_phase(work: Path, lib: Path) -> tuple[int, int]:
+def train_phase(work: Path, lib: Path) -> tuple[int, int, int]:
     """``ket train --device cuda`` on the ViT index run's catalog: ViT-B/16 @
     448, batch 16, the catalog's tags as the vocabulary, one epoch (16
     steps). The loss must be finite and fall, no attention kernel may run
@@ -2714,7 +2777,8 @@ def train_phase(work: Path, lib: Path) -> tuple[int, int]:
     checkpoint must launch kernel 1 twelve times a batch with no failed tag.
     Then the step's time (CUDA events, warm, mean of 5), its MFU and its peak
     memory. Returns the GELU launches of the training and of that index run,
-    and the kernel-1 launches of the index run."""
+    the GELU backward launches of the training (12 a step) and the kernel-1
+    launches of the index run."""
     import numpy as np
     import torch
 
@@ -2730,7 +2794,7 @@ def train_phase(work: Path, lib: Path) -> tuple[int, int]:
     t_phase = time.perf_counter()
     out = work / "finetuned"
     attention.launches = attention.launches_separate = 0
-    gelu.launches = 0
+    gelu.launches = gelu.backward_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = json.loads(run_cli(["--data-dir", str(work / "data"), "--device", DEVICE, "train", "--preset", "base",
@@ -2738,18 +2802,20 @@ def train_phase(work: Path, lib: Path) -> tuple[int, int]:
                               "--out", str(out)]).strip().splitlines()[-1])
     wall = time.perf_counter() - t0
     train_attn = attention.launches + attention.launches_separate
-    train_gelu = gelu.launches
+    train_gelu, train_gelu_backward = gelu.launches, gelu.backward_launches
     peak_cli = torch.cuda.max_memory_allocated()
     steps = N_IMAGES // TRAIN_BATCH
     print(f"ket train vit-b448: files={res['files']} labels={res['labels']} steps={res['steps']} "
           f"first_loss={res['first_loss']:.6f} final_loss={res['final_loss']:.6f} elapsed_sec={res['elapsed_sec']} "
           f"wall={wall:.1f} s; attention launches {train_attn}, gelu launches {train_gelu}, "
+          f"gelu backward launches {train_gelu_backward}, "
           f"peak memory {peak_cli / 2**30:.2f} GiB")
     check(res["files"] == N_IMAGES and res["steps"] == steps, f"train: {res['files']} files, {res['steps']} steps")
     check(np.isfinite(res["first_loss"]) and np.isfinite(res["final_loss"]), "train: non-finite loss")
     check(res["final_loss"] < res["first_loss"], "train: the loss did not fall")
     check(train_attn == 0, f"train: {train_attn} attention-kernel launches (no backward)")
     check(train_gelu == 12 * steps, f"train: gelu launches {train_gelu} != {12 * steps}")
+    check(train_gelu_backward == 12 * steps, f"train: gelu backward launches {train_gelu_backward} != {12 * steps}")
 
     # the checkpoint and labels CSV load into the tagger (fast math on CUDA)
     tagger = TorchTagger(checkpoint_path=res["checkpoint"], labels_path=res["labels_csv"], device=DEVICE)
@@ -2793,8 +2859,12 @@ def train_phase(work: Path, lib: Path) -> tuple[int, int]:
           f"mean of 5), {flops / 1e12:.2f} TFLOP (3 x forward), MFU {flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S:.4f} "
           f"against {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16; max_memory_allocated {peak / 2**30:.2f} GiB")
     # where a step's time goes: forward + loss, backward, the AdamW update
-    # (CUDA events between the three, mean of 5), and the plain GELU
-    # backward alone at the step's MLP shape, once for each of the 12 layers
+    # (CUDA events between the three, mean of 5), and the GELU backward
+    # alone at the step's MLP shape, once for each of the 12 layers: the
+    # kernel, and its plain version
+    h = torch.randn(TRAIN_GELU, device=DEVICE).to(torch.bfloat16)
+    gelu_bwd_ms = 12 * cuda_ms(lambda: gelu.gelu_backward(h, h, approximate=False), iters=10)
+    plain_bwd_ms = 12 * cuda_ms(lambda: gelu.gelu_erf_backward_plain(h, h), iters=3, warmup=1)
     marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(5)]
     for ev in marks:
         ev[0].record()
@@ -2807,13 +2877,12 @@ def train_phase(work: Path, lib: Path) -> tuple[int, int]:
         ev[3].record()
     torch.cuda.synchronize()
     split = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / len(marks) for i in range(3)]
-    h = torch.randn(TRAIN_BATCH * (vcfg.num_patches + 1), vcfg.mlp_dim, device=DEVICE).to(torch.bfloat16)
-    gelu_bwd_ms = 12 * cuda_ms(lambda: gelu.gelu_erf_backward_plain(h, h), iters=3, warmup=1)
+    check(TRAIN_GELU == (TRAIN_BATCH * (vcfg.num_patches + 1), vcfg.mlp_dim), "the train step's MLP shape")
     print(f"train step split: forward + loss {split[0]:.2f} ms, backward {split[1]:.2f} ms, AdamW {split[2]:.2f} ms; "
-          f"the plain erf-GELU backward at ({h.shape[0]}, {h.shape[1]}) bf16, 12 layers: {gelu_bwd_ms:.2f} ms; "
-          f"phase {time.perf_counter() - t_phase:.1f} s")
+          f"the erf-GELU backward at {TRAIN_GELU} bf16, 12 layers: kernel {gelu_bwd_ms:.2f} ms, "
+          f"plain {plain_bwd_ms:.2f} ms; phase {time.perf_counter() - t_phase:.1f} s")
     del step, x, y, h
-    return train_gelu + index_gelu, index_attn
+    return train_gelu + index_gelu, train_gelu_backward, index_attn
 
 
 def _http(base: str, route: str, payload=None) -> tuple[int, str, bytes]:
@@ -3080,6 +3149,16 @@ def _file_row(db: Path, path: Path) -> tuple:
 
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     try:
         import torch
@@ -3096,21 +3175,16 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
 
     t_start = time.perf_counter()
     build_kernels()
     attn, attn_separate = attention_phase()
     window = window_attention_phase()
     ln = layernorm_residual_phase()
-    act = gelu_phase()
+    act, act_backward = gelu_phase()
     hamming = pairwise_hamming_phase()
-    kernels = [attn, attn_separate, window, ln, hamming, act]
+    kernels = [attn, attn_separate, window, ln, hamming, act, act_backward]
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_root))
@@ -3125,7 +3199,7 @@ def main() -> int:
         query_scale_phase()
         ann_launches, sep_ann = ann_phase(work, lib, labels)
         check(ann_launches == attn["launches"], "attention launches of the ANN index run")
-        gelu_train, train_attn = train_phase(work, lib)  # before upkeep changes the library
+        gelu_train, act_backward["launches"], train_attn = train_phase(work, lib)  # before upkeep changes the library
         up_attn, up_window, sep_up = upkeep_phase(work, lib, labels, cfg)
         attn["launches"] += up_attn + train_attn
         window["launches"] += up_window
@@ -3135,6 +3209,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
+    print(card_line())  # again at the end, where a cut tail of the output still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

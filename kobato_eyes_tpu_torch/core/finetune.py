@@ -10,9 +10,9 @@ orbax needs JAX) beside the ``<out>_config.json`` arch sidecar and the
 labels_path=...)`` loads directly.
 
 ``_load_training_set`` and ``FinetuneResult`` are the JAX package's, word
-for word. The initial weights are the port's own seeded init
-(``_init_model``): the JAX package draws flax's ``init_params(cfg, seed=0)``,
-which torch cannot reproduce.
+for word. The initial weights are the trainer's seeded init
+(``models/train._init_model``): the JAX package draws flax's
+``init_params(cfg, seed=0)``, which torch cannot reproduce.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from kobato_eyes_tpu_torch.models.base import TagCategory
 from kobato_eyes_tpu_torch.models.preprocess import PreprocessSpec, prepare_batch
 from kobato_eyes_tpu_torch.models.tagger import save_checkpoint
 from kobato_eyes_tpu_torch.models.train import TrainConfig, make_train_step
-from kobato_eyes_tpu_torch.models.vit import ViT, ViTConfig, init_vit_, vit_config
+from kobato_eyes_tpu_torch.models.vit import vit_config
 
 logger = logging.getLogger(__name__)
 
@@ -120,11 +120,6 @@ def _load_training_set(db_path: str | Path, *, min_tag_count: int, limit: int | 
     return records, targets, vocab
 
 
-def _init_model(cfg: ViTConfig) -> ViT:
-    """The fine-tune's initial weights: the port's seeded init."""
-    return init_vit_(ViT(cfg), torch.Generator().manual_seed(0))
-
-
 def finetune_from_catalog(
     db_path: str | Path,
     *,
@@ -157,9 +152,7 @@ def finetune_from_catalog(
     cfg = vit_config(preset, image_size=image_size, num_classes=len(vocab),
                      **(vit_overrides or {}))
     spec = PreprocessSpec(mode="wd14", size=image_size)
-    step, _ = make_train_step(
-        cfg, spec, TrainConfig(learning_rate=learning_rate), model=_init_model(cfg), device=dev
-    )
+    step, _ = make_train_step(cfg, spec, TrainConfig(learning_rate=learning_rate), device=dev)
 
     target_of_id = {r.file_id: targets[i] for i, r in enumerate(records)}
     for epoch in range(epochs):

@@ -7,12 +7,12 @@ JAX step takes and returns ``(params, opt_state)``. The optimizer is optax's
 ``torch.optim.AdamW`` with betas (0.9, 0.999), eps 1e-8 and the same decay
 (torch's own default decay, 0.01, is not taken).
 
-No CUDA kernel of the port has a backward, and neither has any Pallas
+No port of a Pallas kernel has a backward, and neither has any Pallas
 kernel of the JAX package (``jax.grad`` through one fails to linearize): a
 model configured with the attention kernels (``attn_impl="pallas"``, ViT or
 SwinV2) or the residual LayerNorm kernel (``ln_impl="pallas_residual"``)
 raises here. ``"einsum"``, ``"fused"`` and ``"flash"`` (SDPA) train; the
-GELU pass differentiates (``ops/gelu.py``).
+GELU pass differentiates through its own backward kernel (``ops/gelu.py``).
 """
 
 from __future__ import annotations
@@ -69,6 +69,12 @@ def check_trainable(model: Any) -> None:
         )
 
 
+def _init_model(cfg: ViTConfig) -> ViT:
+    """The trainer's initial weights: the port's seeded init (the JAX package
+    draws flax's ``init_params(cfg, seed=0)``, which torch cannot reproduce)."""
+    return init_vit_(ViT(cfg), torch.Generator().manual_seed(0))
+
+
 class TrainStep:
     """``step(batch_u8, labels) -> loss``: normalize on the device, forward,
     BCE, backward and one AdamW update of ``model`` in place. The loss comes
@@ -110,11 +116,11 @@ def make_train_step(
 
     Pass ``model`` explicitly to fine-tune any backbone (SwinV2, the CLIP
     encoder, ...) with its weights; otherwise a ViT is built from
-    ``vit_cfg`` and initialised from ``torch.Generator().manual_seed(0)``.
+    ``vit_cfg`` by ``_init_model``.
     """
     dev = resolve_device(device)
     if model is None:
-        model = init_vit_(ViT(vit_cfg), torch.Generator().manual_seed(0))
+        model = _init_model(vit_cfg)
     check_trainable(model)
     model = model.to(dev).train().requires_grad_(True)
     optimizer = make_optimizer(train_cfg, model.parameters())

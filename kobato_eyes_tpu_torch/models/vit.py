@@ -111,16 +111,6 @@ def vit_forward_flops(cfg: ViTConfig, batch_size: int, *, with_head: bool = True
 # ---------------------------------------------------------------------------
 
 
-def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu(x, approximate=True)`` as XLA evaluates it: every step
-    rounded to x's dtype with the constants rounded to it
-    (``ops/gelu.py``; one CUDA pass on the card). ``F.gelu(x,
-    approximate="tanh")`` rounds once and differs from XLA on about 43% of
-    bf16 entries; this form on none of 200 000 bf16 values of N(0, 9)
-    (``tests/test_torch_vit.py``)."""
-    return gelu(x, approximate=True)
-
-
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """OpenAI CLIP's ``x * sigmoid(1.702 x)`` as XLA evaluates the JAX
     package's ``h * jax.nn.sigmoid(1.702 * h)``: 1.702 rounded to x's dtype,

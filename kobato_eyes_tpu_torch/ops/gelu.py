@@ -40,10 +40,12 @@ boundaries, ``"scalar"`` (one element a thread) otherwise.
 
 ``gelu`` differentiates: its backward is JAX's own jvp of the same formula
 (``d erfc(z) = -2/sqrt(pi) * exp(-z**2)``; the tanh form's chain rule as
-XLA's compiled vjp arranges it), written in plain torch ops in the forward's
-dtype. A wrapper launches the kernel for a CUDA tensor and raises if the
-launch fails; it takes the plain version only for a CPU tensor.
-``launches`` counts the kernel launches in this process.
+XLA's compiled vjp arranges it), one more pass of ``csrc/gelu.cu``
+(``gelu_backward``, bound by three tensors' bytes), whose plain versions
+are ``gelu_*_backward_plain``. A wrapper launches its kernel for CUDA
+tensors and raises if the launch fails; it takes the plain version only for
+a CPU tensor. ``launches`` and ``backward_launches`` count the two kernels'
+launches in this process.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import struct
 import torch
 
 launches = 0
+backward_launches = 0
 
 _SOURCE = "gelu.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -204,42 +207,69 @@ def _library() -> ctypes.CDLL:
     from kobato_eyes_tpu_torch.ops.build import load
 
     lib = load(_SOURCE)
-    fn = lib.gelu_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.gelu_launch.argtypes is None:
+        lib.gelu_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.gelu_launch.restype = ctypes.c_int
+        lib.gelu_backward_launch.argtypes = [ctypes.c_void_p] + lib.gelu_launch.argtypes
+        lib.gelu_backward_launch.restype = ctypes.c_int
     return lib
 
 
-def gelu_forward(x: torch.Tensor, *, approximate: bool, variant: str | None = None) -> torch.Tensor:
-    """One GELU pass, no autograd: the kernel for a CUDA tensor, the plain
-    version for a CPU tensor. ``variant`` names the body instead of
-    ``kernel_variant`` (to time one beside the other); ``"vec"`` on an
-    unaligned tensor raises."""
-    global launches
-    if x.device.type == "cpu":
-        return gelu_tanh_plain(x) if approximate else gelu_erf_plain(x)
+def _cuda_operands(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """``tensors`` made contiguous, after checking they are CUDA tensors of
+    one supported dtype and shape."""
+    x = tensors[0]
     if x.device.type != "cuda":
         raise ValueError(f"gelu kernel needs a CUDA tensor, got {x.device}")
     _check_dtype(x)
-    xc = x.contiguous()
+    for t in tensors[1:]:
+        if t.device != x.device or t.dtype != x.dtype or t.shape != x.shape:
+            raise ValueError("gelu backward takes x and its gradient on one device, of one dtype and shape")
+    return [t.contiguous() for t in tensors]
+
+
+def gelu_forward(x: torch.Tensor, *, approximate: bool) -> torch.Tensor:
+    """One GELU pass, no autograd: the kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    global launches
+    if x.device.type == "cpu":
+        return gelu_tanh_plain(x) if approximate else gelu_erf_plain(x)
+    (xc,) = _cuda_operands(x)
     out = torch.empty_like(xc)
     if xc.numel() == 0:
         return out
-    chosen = kernel_variant(xc, out)
-    if variant is None:
-        variant = chosen
-    elif variant not in _VARIANT_CODES or (variant == "vec" and chosen != "vec"):
-        raise ValueError(f"gelu variant {variant!r} does not take this tensor")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _library().gelu_launch(
         xc.data_ptr(), out.data_ptr(), xc.numel(), _DTYPE_CODES[x.dtype],
-        _FORM_CODES["tanh" if approximate else "erf"], _VARIANT_CODES[variant], stream,
+        _FORM_CODES["tanh" if approximate else "erf"], _VARIANT_CODES[kernel_variant(xc, out)], stream,
     )
     if err != 0:
         raise RuntimeError(f"gelu launch failed: cudaError_t {err}")
     launches += 1
+    return out
+
+
+def gelu_backward(x: torch.Tensor, grad: torch.Tensor, *, approximate: bool) -> torch.Tensor:
+    """The gradient through ``gelu_forward`` at ``x`` given ``grad`` (of x's
+    dtype and shape): the backward kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    global backward_launches
+    if x.device.type == "cpu":
+        backward = gelu_tanh_backward_plain if approximate else gelu_erf_backward_plain
+        return backward(x, grad)
+    xc, gc = _cuda_operands(x, grad)
+    out = torch.empty_like(xc)
+    if xc.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _library().gelu_backward_launch(
+        xc.data_ptr(), gc.data_ptr(), out.data_ptr(), xc.numel(), _DTYPE_CODES[x.dtype],
+        _FORM_CODES["tanh" if approximate else "erf"], _VARIANT_CODES[kernel_variant(xc, gc, out)], stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"gelu backward launch failed: cudaError_t {err}")
+    backward_launches += 1
     return out
 
 
@@ -253,8 +283,7 @@ class _Gelu(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         (x,) = ctx.saved_tensors
-        backward = gelu_tanh_backward_plain if ctx.approximate else gelu_erf_backward_plain
-        return backward(x, grad.to(x.dtype)), None
+        return gelu_backward(x, grad.to(x.dtype), approximate=ctx.approximate), None
 
 
 def gelu(x: torch.Tensor, *, approximate: bool = False) -> torch.Tensor:

@@ -2,7 +2,7 @@
 the JAX package's, on one tiny catalog.
 
 The JAX package draws its initial weights with flax's ``init_params(cfg,
-seed=0)``; the port's ``_init_model`` is patched to return that same tree
+seed=0)``; the port trainer's ``_init_model`` (``models/train.py``) is patched to return that same tree
 through ``vit_state_from_jax_params``, so both sides train the same weights
 on the same batches. f32 (``vit_overrides={"dtype": ...}``), lr 1e-4: the
 loss history agrees to 1e-5 relative (sums in another order, carried
@@ -30,6 +30,7 @@ from kobato_eyes_tpu.models import vit as jvit
 from kobato_eyes_tpu_torch.core import finetune as tfinetune
 from kobato_eyes_tpu_torch.db.connection import reset_bootstrap_cache as treset
 from kobato_eyes_tpu_torch.models import import_weights as timport
+from kobato_eyes_tpu_torch.models import train as ttrain
 from kobato_eyes_tpu_torch.models import vit as tvit
 
 torch.set_num_threads(1)
@@ -97,7 +98,7 @@ def jax_init(monkeypatch):
         model.load_state_dict(timport.vit_state_from_jax_params(params, cfg), strict=True)
         return model
 
-    monkeypatch.setattr(tfinetune, "_init_model", init)
+    monkeypatch.setattr(ttrain, "_init_model", init)
 
 
 def _run_both(catalog: Path, out: Path, **kw):

@@ -76,7 +76,7 @@ def test_tanh_bf16_matches_xla_bit_for_bit():
     xt = torch.from_numpy(x).to(torch.bfloat16)
     want = _xla_gelu(x, jnp.bfloat16, approximate=True)
     np.testing.assert_array_equal(tgelu.gelu_tanh_plain(xt).float().numpy(), want)
-    np.testing.assert_array_equal(tvit.gelu_tanh(xt).float().numpy(), want)
+    np.testing.assert_array_equal(tgelu.gelu(xt, approximate=True).float().numpy(), want)
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -185,6 +185,8 @@ def test_unsupported_dtype_and_device_raise():
         tgelu.gelu_forward(torch.zeros(4, dtype=torch.float16), approximate=False)
     with pytest.raises(ValueError):
         tgelu.gelu_forward(torch.zeros(4, device="meta"), approximate=True)
+    with pytest.raises(ValueError):
+        tgelu.gelu_backward(torch.zeros(4, device="meta"), torch.zeros(4, device="meta"), approximate=False)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -193,3 +195,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     np.testing.assert_array_equal(tgelu.gelu_forward(x, approximate=False).numpy(),
                                   tgelu.gelu_erf_plain(x).numpy())
     assert tgelu.launches == before
+
+
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_cpu_backward_takes_the_plain_version_and_counts_no_launch(dt, approximate):
+    tdt, _ = DTYPES[dt]
+    before = tgelu.backward_launches
+    x = torch.from_numpy(_values(6)[:3001]).to(tdt)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=3001).astype(np.float32)).to(tdt)
+    got = tgelu.gelu_backward(x, g, approximate=approximate)
+    plain = tgelu.gelu_tanh_backward_plain if approximate else tgelu.gelu_erf_backward_plain
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.float().numpy(), plain(x, g).float().numpy())
+    assert tgelu.backward_launches == before
