@@ -49,9 +49,11 @@ batch 32, random seeded weights):
   forward beside the f32-weight one; ``refresh``, ``retag``, the watcher
   (batch-of-one tag jobs on worker threads) and the host commands against
   SQL, ``reset`` last;
-* GELU: the erf and tanh pass (bf16 and f32) against its plain version at
-  ViT-B/448's and SwinV2-B/448's MLP shapes, timed beside ``F.gelu``, and
-  both taggers' forwards with the pass, the plain sequence and ``F.gelu``;
+* GELU: the erf and tanh pass (bf16 and f32) and its gradient against
+  their plain versions, in bf16 through the tables (``"lut"``) on all 65 536
+  bf16 inputs and at ViT-B/448's and SwinV2-B/448's MLP shapes, timed beside
+  the ``"vec"`` body and ``F.gelu``, and both taggers' forwards with the
+  pass, the ``"vec"`` body, the plain sequence and ``F.gelu``;
 * training: ``train`` through the CLI on the ViT run's catalog (ViT-B/16 @
   448, batch 16, one epoch), the checkpoint in ``TorchTagger`` and an
   ``index`` from it, the step's time and MFU;
@@ -694,15 +696,21 @@ GELU_OPS = {"erf_small": 20, "erf_big": 46, "tanh": 12, "erf_small_bwd": 32, "er
 
 def gelu_phase() -> tuple[dict, dict]:
     """The GELU pass and its backward pass (erf and tanh forms, bf16 and f32)
-    against their plain versions at ViT-B/448's, the train step's and
-    SwinV2-B/448's MLP shapes: the count of differing elements, printed and
-    bounded; the scalar body on views off alignment and ragged tails; times
-    of the kernel, the plain sequence and ``F.gelu`` at each shape, and of
-    the backward kernel, its plain sequence and ``aten.gelu_backward`` at the
-    train step's; then the ViT-B/448 and SwinV2-B/448 forwards at batch 32
-    with the kernel, with the plain op-by-op sequence and with ``F.gelu`` in
-    its place. Returns the two kernels' entries: the forward's (the tanh form
-    at the ViT-B/448 shape, the form of the index runs' fast forward) and the
+    against their plain versions: first the bf16 tables (built once per form
+    and direction, not counted as launches) and the ``"lut"`` bodies on all
+    65 536 bf16 inputs, against the ``"vec"`` body that built the tables and
+    against the plain version (the gradient with three seeded g), 0
+    elements apart; then at ViT-B/448's, the train step's and SwinV2-B/448's
+    MLP shapes (bf16 through ``"lut"``, 0 elements apart; f32 through
+    ``"vec"``, bounded); the scalar body on views off alignment, ragged
+    tails and special values; times of the kernel, the ``"vec"`` body in
+    bf16, the plain sequence and ``F.gelu`` at each shape, and of the
+    backward kernel, its ``"vec"`` body, its plain sequence and
+    ``aten.gelu_backward`` at the train step's; then the ViT-B/448 and
+    SwinV2-B/448 forwards at batch 32 with the kernel, with the ``"vec"``
+    body, with the plain op-by-op sequence and with ``F.gelu`` in its place.
+    Returns the two kernels' entries: the forward's (the tanh form at the
+    ViT-B/448 shape, the form of the index runs' fast forward) and the
     backward's (the erf form in bf16 at the train step's shape, which
     training runs)."""
     import numpy as np
@@ -752,24 +760,69 @@ def gelu_phase() -> tuple[dict, dict]:
         xa = x.float().abs()
         scale = torch.maximum(xa, w.abs()) if g is None else w.abs() + g.float().abs() * (1 + xa) ** 3
         within = bool(((gf - w).abs() <= step * scale).all())
-        bound = 4 + x.numel() // 10**6
+        # bf16 results are a function of the bf16 inputs that the tables
+        # hold exactly (the all-inputs check above): none may differ
+        bound = 0 if x.dtype == torch.bfloat16 else 4 + x.numel() // 10**6
         tol = "one bf16 step each" if x.dtype == torch.bfloat16 else "2^-21 of the terms' magnitude each"
         print(f"gelu{'' if g is None else ' backward'} {name} [{ran}]: {n_diff} of {x.numel()} elements differ "
               f"from the plain version (bound {bound}, {tol}), max_abs_err={err:.3e}")
         check(n_diff <= bound and within, f"gelu {name}: {n_diff} elements differ (bound {bound}) or not within {tol}")
         return err
 
+    def apart(got, want):
+        """Elements whose bits differ (NaN to NaN is equal, -0 to +0 is not)."""
+        same = (got.view(torch.int16) == want.view(torch.int16)) | (torch.isnan(got) & torch.isnan(want))
+        return int((~same).sum())
+
+    # the tables: built here, before any CUDA-graph capture, and not launches
+    builds, launched = gelu.table_builds, (gelu.launches, gelu.backward_launches)
+    gelu.prepare_tables(dev)
+    check((gelu.launches, gelu.backward_launches) == launched, "gelu: building the tables counted launches")
+    print(f"gelu tables: {gelu.table_builds - builds} built (forward and gradient, erf and tanh), "
+          f"windows {gelu.LUT_WINDOW} (biased bf16 exponents of |x|)")
+    # the "lut" bodies on every bf16 input, against the "vec" body (whose
+    # functions built the tables) and the plain version; the gradient with
+    # g from three seeds. The card's tables beside the ones the plain
+    # version gives on the host (informative: they differ only where the
+    # host's exp / tanh round apart from the card's)
+    every = torch.arange(65536, dtype=torch.int32, device=dev)
+    every = ((every + 0x8000) % 0x10000 - 0x8000).to(torch.int16).view(torch.bfloat16)
+    for approximate in (True, False):
+        form = "tanh" if approximate else "erf"
+        check(gelu.kernel_variant(every, every) == "lut", "gelu: all-inputs tensor does not run lut")
+        lut = gelu.gelu_forward(every, approximate=approximate)
+        body = gelu.gelu_forward(every, approximate=approximate, variant="vec")
+        n_body, n_plain = apart(lut, body), apart(lut, plain(every, approximate))
+        host_tables = [int(((gelu.lut_table(dev, form, backward=b).long().cpu()
+                             ^ gelu.gelu_table_plain(form, backward=b).long()) & (0xFFFFFFFF if b else 0xFFFF))
+                           .ne(0).sum()) for b in (False, True)]
+        print(f"gelu {form} lut, all 65536 bf16 inputs: {n_body} apart from the vec body, {n_plain} from the "
+              f"plain version; table entries apart from the host's plain version: forward {host_tables[0]}, "
+              f"gradient {host_tables[1]}")
+        check(n_body == 0 and n_plain == 0, f"gelu {form} lut differs on all bf16 inputs: {n_body} / {n_plain}")
+        for seed in range(3):
+            g = torch.from_numpy(np.random.default_rng(seed).normal(size=65536).astype(np.float32)).to(dev)
+            g = g.to(torch.bfloat16)
+            lut = gelu.gelu_backward(every, g, approximate=approximate)
+            body = gelu.gelu_backward(every, g, approximate=approximate, variant="vec")
+            n_body, n_plain = apart(lut, body), apart(lut, plain_backward(every, g, approximate))
+            print(f"gelu backward {form} lut, all 65536 bf16 inputs, g of seed {seed}: {n_body} apart from "
+                  f"the vec body, {n_plain} from the plain version")
+            check(n_body == 0 and n_plain == 0,
+                  f"gelu backward {form} lut differs on all bf16 inputs (seed {seed}): {n_body} / {n_plain}")
+
     errs, bwd_errs = {}, {}
     for shape in (VIT_GELU, TRAIN_GELU) + SWIN_GELU:
         for dtype in (torch.bfloat16, torch.float32):
             x = inputs(shape, dtype)
             g = inputs(shape, dtype)
+            body = "lut" if dtype == torch.bfloat16 else "vec"
             for approximate in (True, False):
                 form = "tanh" if approximate else "erf"
                 name = f"{form} {shape} {str(dtype).split('.')[-1]}"
                 if shape != TRAIN_GELU:
-                    errs[(shape, dtype, approximate)] = compare(name, x, approximate, "vec")
-                bwd_errs[(shape, dtype, approximate)] = compare(name, x, approximate, "vec", g)
+                    errs[(shape, dtype, approximate)] = compare(name, x, approximate, body)
+                bwd_errs[(shape, dtype, approximate)] = compare(name, x, approximate, body, g)
             del x, g
     # the scalar body and the vec body's tail: a view 2 bytes off a 16-byte
     # boundary, element counts that leave a partial last chunk
@@ -783,10 +836,11 @@ def gelu_phase() -> tuple[dict, dict]:
             compare(f"{form} misaligned view {dt}", off, approximate, "scalar")
             compare(f"{form} misaligned view {dt}", off, approximate, "scalar", goff)
             compare(f"{form} misaligned gradient {dt}", base[:-1].view(1023, 1025), approximate, "scalar", goff)
-            for n in (1001, 7):
+            body = "lut" if dtype == torch.bfloat16 else "vec"
+            for n in (123_457, 1001, 7):
                 x, g = inputs(n, dtype), inputs(n, dtype)
-                compare(f"{form} {n} elements {dt}", x, approximate, "vec")
-                compare(f"{form} {n} elements {dt}", x, approximate, "vec", g)
+                compare(f"{form} {n} elements {dt}", x, approximate, body)
+                compare(f"{form} {n} elements {dt}", x, approximate, body, g)
     special = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, -2.0, -13.25, 30.0, -30.0, 1e30, -1e30,
                             float("inf"), float("-inf"), float("nan")], device=dev)
     for dtype in (torch.bfloat16, torch.float32):
@@ -803,18 +857,37 @@ def gelu_phase() -> tuple[dict, dict]:
     print("gelu forward and backward special values (0, -0, +-1, +-2, -13.25, +-30, +-1e30, +-inf, nan): "
           "equal to the plain version")
 
-    # times at each shape: kernel and F.gelu through a CUDA graph over input
-    # sets that together exceed the L2 several times, the plain sequence call
-    # by call
+    def kernel_readings(fns_of):
+        """The kernel's time for each form, read three times in the order
+        tanh, erf, erf, tanh, tanh, erf: {approximate: [readings]}. The
+        first readings at a shape can run slow for a while (on an H100 up to
+        1.16x, for whichever form came first), though the two forms' "lut"
+        forwards are one machine code and read alike in turns."""
+        readings = {True: [], False: []}
+        for approximate in (True, False, False, True, True, False):
+            readings[approximate].append(cuda_graph_ms(fns_of(approximate)))
+        return readings
+
+    # times at each shape: kernel (bf16: "lut"; the least of its readings),
+    # the "vec" body in bf16 and F.gelu through a CUDA graph over
+    # input sets that together exceed the L2 several times, the plain
+    # sequence call by call
     rows = {}
     for shape in (VIT_GELU,) + SWIN_GELU:
         for dtype in (torch.bfloat16, torch.float32):
             n = shape[0] * shape[1]
             bytes_moved = 2 * n * torch.tensor([], dtype=dtype).element_size()
             sets = [inputs(shape, dtype) for _ in range(max(2, min(8, -(-400_000_000 // bytes_moved))))]
+            readings = kernel_readings(
+                lambda ap: [lambda a=a: gelu.gelu_forward(a, approximate=ap) for a in sets] * 2)
             for approximate in (True, False):
                 form = "tanh" if approximate else "erf"
-                ms = cuda_graph_ms([lambda a=a: gelu.gelu_forward(a, approximate=approximate) for a in sets] * 2)
+                ms = min(readings[approximate])
+                body = ""
+                if dtype == torch.bfloat16:
+                    body_ms = cuda_graph_ms(
+                        [lambda a=a: gelu.gelu_forward(a, approximate=approximate, variant="vec") for a in sets] * 2)
+                    body = f"vec body {body_ms:.4f} ms, "
                 lib_ms = cuda_graph_ms([lambda a=a: F.gelu(a, approximate=form if approximate else "none")
                                         for a in sets] * 2)
                 plain_ms = cuda_ms(lambda: plain(sets[0], approximate), iters=2, warmup=1)
@@ -826,9 +899,10 @@ def gelu_phase() -> tuple[dict, dict]:
                 t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
                 t_ops = ops / F32_FLOPS_PER_S * 1e3
                 bound = max(t_bytes, t_ops)
-                print(f"gelu {form} {shape} {str(dtype).split('.')[-1]}: kernel {ms:.4f} ms "
-                      f"({ms / bound:.2f}x the bound, {bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s), "
-                      f"F.gelu {lib_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
+                print(f"gelu {form} {shape} {str(dtype).split('.')[-1]}: kernel [{gelu.kernel_variant(sets[0])}] "
+                      f"{ms:.4f} ms (readings {' / '.join(f'{r:.4f}' for r in readings[approximate])}; "
+                      f"{ms / bound:.2f}x the bound, {bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s), "
+                      f"{body}F.gelu {lib_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
                       f"({'bytes' if t_bytes >= t_ops else 'operations'}: {bytes_moved / 1e6:.1f} MB, "
                       f"{ops / 1e9:.2f} GFLOP)")
                 rows[(shape, dtype, approximate)] = (ms, plain_ms, lib_ms, t_ops, t_bytes)
@@ -842,10 +916,16 @@ def gelu_phase() -> tuple[dict, dict]:
         bytes_moved = 3 * n * torch.tensor([], dtype=dtype).element_size()
         sets = [(inputs(TRAIN_GELU, dtype), inputs(TRAIN_GELU, dtype))
                 for _ in range(max(2, min(8, -(-400_000_000 // bytes_moved))))]
+        readings = kernel_readings(
+            lambda ap: [lambda a=a, b=b: gelu.gelu_backward(a, b, approximate=ap) for a, b in sets] * 2)
         for approximate in (True, False):
             form = "tanh" if approximate else "erf"
-            ms = cuda_graph_ms([lambda a=a, b=b: gelu.gelu_backward(a, b, approximate=approximate)
-                                for a, b in sets] * 2)
+            ms = min(readings[approximate])
+            body = ""
+            if dtype == torch.bfloat16:
+                body_ms = cuda_graph_ms([lambda a=a, b=b: gelu.gelu_backward(a, b, approximate=approximate,
+                                                                             variant="vec") for a, b in sets] * 2)
+                body = f"vec body {body_ms:.4f} ms, "
             lib_ms = cuda_graph_ms([lambda a=a, b=b: torch.ops.aten.gelu_backward(
                 b, a, approximate=form if approximate else "none") for a, b in sets] * 2)
             plain_ms = cuda_ms(lambda: plain_backward(*sets[0], approximate), iters=2, warmup=1)
@@ -857,21 +937,26 @@ def gelu_phase() -> tuple[dict, dict]:
             t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
             t_ops = ops / F32_FLOPS_PER_S * 1e3
             bound = max(t_bytes, t_ops)
-            print(f"gelu backward {form} {TRAIN_GELU} {str(dtype).split('.')[-1]}: kernel {ms:.4f} ms "
-                  f"({ms / bound:.2f}x the bound, {bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s), "
+            print(f"gelu backward {form} {TRAIN_GELU} {str(dtype).split('.')[-1]}: kernel "
+                  f"[{gelu.kernel_variant(*sets[0])}] {ms:.4f} ms (readings "
+                  f"{' / '.join(f'{r:.4f}' for r in readings[approximate])}; {ms / bound:.2f}x the bound, "
+                  f"{bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s), {body}"
                   f"aten.gelu_backward {lib_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
                   f"({'bytes' if t_bytes >= t_ops else 'operations'}: {bytes_moved / 1e6:.1f} MB, "
                   f"{ops / 1e9:.2f} GFLOP)")
             bwd_rows[(dtype, approximate)] = (ms, plain_ms, lib_ms, t_ops, t_bytes)
         del sets
 
-    # the forwards at batch 32: the kernel (this tree), the plain op-by-op
-    # sequence in its place, and F.gelu in its place
+    # the forwards at batch 32: the kernel (this tree), its "vec" body in
+    # bf16 (the pass before the tables), the plain op-by-op sequence in its
+    # place, and F.gelu in its place
     labels = synthetic_labels(N_LABELS)
     rng = np.random.default_rng(1)
     imgs = [rng.integers(0, 256, size=(448, 448, 3), dtype=np.uint8) for _ in range(4)]
     variants = {
         "kernel": gelu.gelu,
+        "vec body": lambda x, approximate=False: gelu.gelu_forward(
+            x, approximate=approximate, variant="vec" if gelu.kernel_variant(x) == "lut" else None),
         "plain": lambda x, approximate=False: plain(x, approximate),
         "F.gelu": lambda x, approximate=False: F.gelu(x, approximate="tanh" if approximate else "none"),
     }

@@ -6,6 +6,13 @@ same op sequence in torch ops. The reference is the jitted JAX function: XLA
 drops the bf16 rounding of ``-x * sqrt(0.5)`` before ``erfc`` when it fuses,
 which op-by-op JAX keeps, and the JAX package runs its tagger jitted.
 
+The ``"lut"`` body (bf16: a table of the forward's outputs, or of the
+gradient's factors of x alone, over a window of |x|'s binades, and one rule
+outside it) has a plain mirror, ``gelu_lut_plain`` /
+``gelu_backward_lut_plain``, with the kernel's index arithmetic. It is held
+to the plain version on all 65 536 bf16 inputs, bit for bit (NaN to NaN),
+and to jitted JAX on all of them but those XLA flushes.
+
 Tolerances: bf16 results are compared bit for bit, and every mismatch
 must be where XLA flushed a subnormal to zero: XLA's CPU runtime computes
 with denormals flushed, so its ``exp(-w)`` is 0 wherever the true value is
@@ -174,10 +181,16 @@ def test_mlp_differentiates_like_jax_in_f32():
 
 
 def test_kernel_variant_by_alignment():
+    """By dtype and alignment alone: the table body for aligned bf16, the
+    16-byte body for aligned f32, one element a thread otherwise."""
     base = torch.zeros(64, dtype=torch.bfloat16)
-    assert tgelu.kernel_variant(base, torch.empty_like(base)) == "vec"
+    assert tgelu.kernel_variant(base, torch.empty_like(base)) == "lut"
     assert tgelu.kernel_variant(base[1:], torch.empty(63, dtype=torch.bfloat16)) == "scalar"
-    assert tgelu.kernel_variant(base[8:], torch.empty(56, dtype=torch.bfloat16)) == "vec"
+    assert tgelu.kernel_variant(base[8:], torch.empty(56, dtype=torch.bfloat16)) == "lut"
+    f32 = torch.zeros(64)
+    assert tgelu.kernel_variant(f32, torch.empty_like(f32)) == "vec"
+    assert tgelu.kernel_variant(f32[4:], torch.empty(60)) == "vec"
+    assert tgelu.kernel_variant(f32[1:], torch.empty(63)) == "scalar"
 
 
 def test_unsupported_dtype_and_device_raise():
@@ -209,3 +222,132 @@ def test_cpu_backward_takes_the_plain_version_and_counts_no_launch(dt, approxima
     assert got.dtype == tdt
     np.testing.assert_array_equal(got.float().numpy(), plain(x, g).float().numpy())
     assert tgelu.backward_launches == before
+
+
+# ---- the "lut" body's mirror on every bf16 input ----
+
+ALL_BF16 = tgelu._from_bits(torch.arange(65536, dtype=torch.int32))
+FORMS = {"erf": False, "tanh": True}
+
+
+def _n_apart(got: torch.Tensor, want) -> np.ndarray:
+    """Where two bf16 results differ in their bits (NaN equals NaN, -0 is
+    not +0)."""
+    a = got.float().numpy()
+    w = np.asarray(want, np.float32)
+    return ~((a.view(np.uint32) == w.view(np.uint32)) | (np.isnan(a) & np.isnan(w)))
+
+
+def _plain(form):
+    return tgelu.gelu_tanh_plain if form == "tanh" else tgelu.gelu_erf_plain
+
+
+def _plain_backward(form):
+    return tgelu.gelu_tanh_backward_plain if form == "tanh" else tgelu.gelu_erf_backward_plain
+
+
+def _seeded_grad(seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=65536).astype(np.float32)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_lut_patterns_index_to_their_own_entries(form):
+    """The table's inputs, run through the kernel's index arithmetic, read
+    entries 0 .. 2 * span - 1 in order; the window is 13 (erf) / 11 (tanh)
+    binades, both signs."""
+    lo, span = tgelu._window(form)
+    pats = tgelu.lut_patterns(form)
+    i, inside, entry = tgelu._lut_index(tgelu._bits(pats), form)
+    assert bool(inside.all())
+    np.testing.assert_array_equal(entry.numpy(), np.arange(2 * span))
+    assert span == {"erf": 13, "tanh": 11}[form] * 128 and lo == 118 << 7
+    assert tgelu.gelu_table_plain(form).shape == (2 * span,)
+    assert tgelu.gelu_table_plain(form, backward=True).shape == (2 * span,)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_lut_forward_mirror_equals_plain_on_every_bf16_input(form):
+    got = tgelu.gelu_lut_plain(ALL_BF16, approximate=FORMS[form])
+    assert got.dtype == torch.bfloat16
+    assert not _n_apart(got, _plain(form)(ALL_BF16).float().numpy()).any()
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("form", list(FORMS))
+def test_lut_backward_mirror_equals_plain_on_every_bf16_input(form, seed):
+    g = torch.from_numpy(_seeded_grad(seed)).to(torch.bfloat16)
+    got = tgelu.gelu_backward_lut_plain(ALL_BF16, g, approximate=FORMS[form])
+    assert got.dtype == torch.bfloat16
+    assert not _n_apart(got, _plain_backward(form)(ALL_BF16, g).float().numpy()).any()
+
+
+@pytest.mark.parametrize("side", ["low", "high"])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_lut_window_is_the_narrowest(form, side, monkeypatch):
+    """One binade less at either end and the rules no longer hold: the
+    window was found on every input, not assumed."""
+    first, last = tgelu.LUT_WINDOW[form]
+    monkeypatch.setitem(tgelu.LUT_WINDOW, form, (first + 1, last) if side == "low" else (first, last - 1))
+    got = tgelu.gelu_lut_plain(ALL_BF16, approximate=FORMS[form])
+    assert _n_apart(got, _plain(form)(ALL_BF16).float().numpy()).sum() > 50
+    g = torch.from_numpy(_seeded_grad(0)).to(torch.bfloat16)
+    got = tgelu.gelu_backward_lut_plain(ALL_BF16, g, approximate=FORMS[form])
+    assert _n_apart(got, _plain_backward(form)(ALL_BF16, g).float().numpy()).sum() > 50
+
+
+# The inputs on which the mirror (and the card's kernel) differ from
+# jitted JAX, all where XLA's CPU runtime flushes subnormals to zero: in both
+# forms the 508 nonzero x below 2^-125 (x or 0.5 * x subnormal: XLA gives a
+# signed zero), and in the erf form 5 x in [-13.3125, -13.0625] where XLA
+# flushes exp(-z^2) (its result 0, ours under 4e-38).
+XLA_FLUSHED_FORWARD = {"erf": 513, "tanh": 508}
+# The gradient: only in the erf form at x in [-13.625, -12.9375], where
+# exp(-z^2) and the products after it are subnormal or near it (both
+# results under 1.5e-36 in magnitude), on 9 / 10 / 11 x for g of seeds 0 / 1 / 2.
+XLA_FLUSHED_BACKWARD = {"erf": (9, 10, 11), "tanh": (0, 0, 0)}
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_lut_forward_mirror_equals_xla_but_flushed(form):
+    approximate = FORMS[form]
+    xj = jnp.asarray(ALL_BF16.view(torch.int16).numpy().view(jnp.bfloat16))
+    want = np.asarray(jax.jit(lambda v: jax.nn.gelu(v, approximate=approximate))(xj), np.float32)
+    got = tgelu.gelu_lut_plain(ALL_BF16, approximate=approximate)
+    apart = _n_apart(got, want)
+    assert int(apart.sum()) == XLA_FLUSHED_FORWARD[form]
+    x = ALL_BF16.float().numpy()[apart]
+    assert np.all(want[apart] == 0)
+    tiny = (np.abs(x) < 2.0**-125) & (x != 0)
+    assert int(tiny.sum()) == 508
+    if form == "erf":
+        assert np.all((x[~tiny] >= -13.3125) & (x[~tiny] <= -13.0625))
+        assert np.all(np.abs(got.float().numpy()[apart][~tiny]) < 4e-38)
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("form", list(FORMS))
+def test_lut_backward_mirror_equals_jax_vjp_but_flushed(form, seed):
+    approximate = FORMS[form]
+    xj = jnp.asarray(ALL_BF16.view(torch.int16).numpy().view(jnp.bfloat16))
+    g = _seeded_grad(seed)
+    want = _xla_gelu_grad_bf16(xj, g, approximate)
+    got = tgelu.gelu_backward_lut_plain(ALL_BF16, torch.from_numpy(g).to(torch.bfloat16), approximate=approximate)
+    apart = _n_apart(got, want)
+    assert int(apart.sum()) == XLA_FLUSHED_BACKWARD[form][seed]
+    x = ALL_BF16.float().numpy()[apart]
+    assert np.all((x >= -13.625) & (x <= -12.9375))
+    assert np.all(np.abs(got.float().numpy()[apart]) < 1.5e-36) and np.all(np.abs(want[apart]) < 1.5e-36)
+
+
+def _xla_gelu_grad_bf16(xj, g: np.ndarray, approximate: bool) -> np.ndarray:
+    def vjp(v, ct):
+        return jax.vjp(lambda u: jax.nn.gelu(u, approximate=approximate), v)[1](ct)[0]
+
+    return np.asarray(jax.jit(vjp)(xj, jnp.asarray(g, jnp.bfloat16)), np.float32)
+
+
+def test_lut_mirror_takes_bf16_only():
+    with pytest.raises(ValueError):
+        tgelu.gelu_lut_plain(torch.zeros(4), approximate=False)
+    with pytest.raises(ValueError):
+        tgelu.gelu_backward_lut_plain(torch.zeros(4), torch.zeros(4), approximate=True)
