@@ -60,7 +60,15 @@ batch 32, random seeded weights):
 * serving: the port's server in this process on the 20 000-file, the dup
   and the ANN catalogs: ``/search`` against SQL, ``/dup?audit=1`` against
   ``dup --audit``, ``/similar`` against ``find_similar``, ``/delta``,
-  ``/reload``, ``/trash``, ``/file``, ``/thumb``.
+  ``/reload``, ``/trash``, ``/file``, ``/thumb``;
+* the sigmoid: the XLA-rounded pass of ``probs_from_logits`` against its
+  plain version on every f32 input (2^32) and at the tagger's (32, 8192)
+  logits, timed beside ``torch.sigmoid``;
+* multi-device, on a mesh of four entries (the cards when there are
+  several, else ``cuda:0`` four times): the ViT-B/448 tagger at data=4 and
+  at data=2, model=2, the sharded dup scan at 70k, the sharded query at
+  20 000 files, flat and IVF search at 100k x 512, each against the
+  single-device path.
 
 Kernels 3 and 5 run shorter than the host takes to enqueue a call, so their
 times are taken through CUDA graphs. Each kernel's launch count is set to 0
@@ -70,7 +78,9 @@ latter's count is summed over the ViT, SwinV2, ANN and upkeep runs; the
 upkeep steps' and the fine-tuned index run's kernel-1 launches and the
 upkeep steps' window launches are added to those kernels'; the GELU count
 sums the ViT and SwinV2 index runs, the training and the fine-tuned index
-run; kernel 5's adds the server's ``/dup?audit=1``. It
+run; kernel 5's adds the server's ``/dup?audit=1``; the multi-device
+tagger forwards add to kernel 1's and the GELU pass's; the sigmoid's sums
+the ViT and SwinV2 index runs and the multi-device forwards. It
 checks each tagger's fast forward against its exact forward, and prints one JSON line of kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. Any failed phase exits
 non-zero before the last line. Without a CUDA device, or without the
@@ -996,6 +1006,78 @@ def gelu_phase() -> tuple[dict, dict]:
 
     return (entry("gelu", rows[(VIT_GELU, torch.bfloat16, True)], max(errs.values())),
             entry("gelu_backward", bwd_rows[(torch.bfloat16, False)], max(bwd_errs.values())))
+
+
+SIGMOID_LOGITS = (BATCH, N_LABELS)  # the tagger's logits a batch
+SIGMOID_SWEEP = 1 << 32  # every f32 bit pattern
+SIGMOID_CHUNK = 1 << 27
+
+
+def sigmoid_phase() -> dict:
+    """The XLA-rounded sigmoid pass (``ops/xla_math.py``) against its plain
+    version on every f32 input (2^32 bit patterns, in chunks), and its exp
+    on every binade; then at the tagger's (32, 8192) logits, 0 elements
+    apart, timed through a CUDA graph beside ``torch.sigmoid`` and the byte
+    bound."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.ops import xla_math as xm
+
+    dev = torch.device(DEVICE)
+    apart = 0
+    t0 = time.perf_counter()
+    for start in range(0, SIGMOID_SWEEP, SIGMOID_CHUNK):
+        bits = torch.arange(start, min(start + SIGMOID_CHUNK, SIGMOID_SWEEP), dtype=torch.int64, device=dev)
+        x = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32).view(torch.float32)
+        got, want = xm.xla_sigmoid_f32(x), xm.sigmoid_plain(x)
+        apart += int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        del bits, x, got, want
+    synchronize()
+    sweep_s = time.perf_counter() - t0
+    print(f"xla sigmoid: every f32 input ({SIGMOID_SWEEP} bit patterns) against the plain version: "
+          f"{apart} apart ({sweep_s:.1f} s)")
+    check(apart == 0, f"xla sigmoid: {apart} of {SIGMOID_SWEEP} inputs differ from the plain version")
+
+    rng = np.random.default_rng(21)
+    mant = np.concatenate([np.array([0, 1, (1 << 22), (1 << 23) - 1], np.uint32),
+                           rng.integers(0, 1 << 23, size=4096).astype(np.uint32)])
+    pats = [(np.uint32(s << 31) | np.uint32(e << 23) | mant) for s in (0, 1) for e in range(256)]
+    x = torch.from_numpy(np.concatenate(pats).view(np.float32)).to(dev)
+    exp_apart = int((xm.xla_exp_f32(x).view(torch.int32) != xm.exp_plain(x).view(torch.int32)).sum())
+    print(f"xla exp: {x.numel()} inputs over every f32 binade of both signs: {exp_apart} apart")
+    check(exp_apart == 0, f"xla exp: {exp_apart} inputs differ from the plain version")
+
+    sets = [torch.from_numpy((np.random.default_rng(22 + i).normal(size=SIGMOID_LOGITS) * 4).astype(np.float32)).to(dev)
+            for i in range(4)]
+    apart = max(int((xm.xla_sigmoid_f32(t).view(torch.int32) != xm.sigmoid_plain(t).view(torch.int32)).sum())
+                for t in sets)
+    err = max(float((xm.xla_sigmoid_f32(t) - xm.sigmoid_plain(t)).abs().max()) for t in sets)
+    check(apart == 0, f"xla sigmoid at {SIGMOID_LOGITS}: {apart} elements apart")
+    ms = cuda_graph_ms([lambda t=sets[i % 4]: xm.xla_sigmoid_f32(t) for i in range(64)])
+    lib_ms = cuda_graph_ms([lambda t=sets[i % 4]: torch.sigmoid(t) for i in range(64)])
+    plain_ms = cuda_ms(lambda: xm.sigmoid_plain(sets[0]), iters=20)
+    n = sets[0].numel()
+    bytes_moved = 2 * n * 4
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 40.0 * n / F32_FLOPS_PER_S * 1e3  # ~40 f32 operations an element (exp, add, divide, checks)
+    print(f"xla sigmoid {SIGMOID_LOGITS}: 0 elements apart; kernel {ms:.4f} ms through a CUDA graph "
+          f"({ms / max(t_bytes, t_ops):.2f}x the bound), torch.sigmoid {lib_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"bound {max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}: "
+          f"{bytes_moved / 1e6:.2f} MB)")
+    return {
+        "name": "xla_sigmoid",
+        "route": "cuda",
+        "source": "kobato_eyes_tpu_torch/csrc/xla_sigmoid.cu",
+        "replaces": "kobato_eyes_tpu/models/postprocess.py:52",
+        "launches": None,  # filled from the main paths' runs
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+    }
 
 
 def pairwise_hamming_phase() -> dict:
@@ -2023,26 +2105,29 @@ def print_index_stats(name: str, stats: dict, wall: float, launches: str) -> Non
     check(stats["tag_failed"] == 0, f"{name}: tag_failed {stats['tag_failed']} != 0")
 
 
-def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int, int]:
+def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int, int, int]:
     """ViT index + search through the CLI; returns the attention launches of
-    the index run through the packed and the separate q, k, v entries, and
-    its GELU launches."""
+    the index run through the packed and the separate q, k, v entries, its
+    GELU launches and its sigmoid launches."""
     import numpy as np
     import torch
 
-    from kobato_eyes_tpu_torch.ops import attention, gelu
+    from kobato_eyes_tpu_torch.ops import attention, gelu, xla_math
 
     data = work / "data"
     base = ["--config", str(cfg), "--data-dir", str(data), "--device", "cuda"]
     attention.launches = attention.launches_separate = 0
-    gelu.launches = 0
+    gelu.launches = xla_math.launches = 0
     t0 = time.perf_counter()
     out = run_cli(base + ["index"])
     wall = time.perf_counter() - t0
     launches, separate, gelu_launches = attention.launches, attention.launches_separate, gelu.launches
+    sigmoid_launches = xla_math.launches
     stats = json.loads(out.strip().splitlines()[-1])
     print_index_stats("vit-b448", stats, wall,
-                      f"attention_launches={launches} separate_qkv={separate} gelu_launches={gelu_launches}")
+                      f"attention_launches={launches} separate_qkv={separate} gelu_launches={gelu_launches} "
+                      f"sigmoid_launches={sigmoid_launches}")
+    check(sigmoid_launches == N_IMAGES // BATCH, f"sigmoid launches {sigmoid_launches} != {N_IMAGES // BATCH}")
     depth = 12  # ViT-B: one attention and one GELU launch per layer per batch
     check(launches == depth * (N_IMAGES // BATCH),
           f"attention launches {launches} != {depth * (N_IMAGES // BATCH)}")
@@ -2081,15 +2166,16 @@ def slice_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, in
     print(f"vit-b448 batch-{BATCH} forward_probs: fast {fast_ms:.2f} ms, exact {exact_ms:.2f} ms "
           f"({BATCH / fast_ms * 1e3:.1f} images/s device-side on the fast path)")
     del fast, exact
-    return launches, separate, gelu_launches
+    return launches, separate, gelu_launches, sigmoid_launches
 
 
-def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int, int, int]:
+def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int, int, int, int]:
     """SwinV2-B/448: index through ``run_index_once``, search through the CLI,
     fast / exact / residual-LN forwards, then ``validate-checkpoint`` through
     the CLI on the index tagger's weights. Returns the window-kernel and the
     separate-q, k, v attention launches of the index run, the LN-kernel
-    launches of the residual-LN batch and the index run's GELU launches."""
+    launches of the residual-LN batch and the index run's GELU and sigmoid
+    launches."""
     import dataclasses
 
     import numpy as np
@@ -2099,7 +2185,7 @@ def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int
     from kobato_eyes_tpu_torch.core.pipeline import run_index_once
     from kobato_eyes_tpu_torch.models.labels import load_labels
     from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
-    from kobato_eyes_tpu_torch.ops import attention, gelu, layernorm_residual, window_attention
+    from kobato_eyes_tpu_torch.ops import attention, gelu, layernorm_residual, window_attention, xla_math
     from kobato_eyes_tpu_torch.utils.image_io import load_rgb_array
 
     t0 = time.perf_counter()
@@ -2111,15 +2197,16 @@ def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int
     window_attention.launches = 0
     layernorm_residual.launches = 0
     attention.launches_separate = 0
-    gelu.launches = 0
+    gelu.launches = xla_math.launches = 0
     t0 = time.perf_counter()
     stats = run_index_once(data / "db" / "catalog.sqlite3", load_settings(cfg), fast).__dict__
     wall = time.perf_counter() - t0
     win_launches, ln_launches = window_attention.launches, layernorm_residual.launches
-    separate, gelu_launches = attention.launches_separate, gelu.launches
+    separate, gelu_launches, sigmoid_launches = attention.launches_separate, gelu.launches, xla_math.launches
     print_index_stats("swinv2-b448", stats, wall,
                       f"window_launches={win_launches} ln_launches={ln_launches} separate_qkv={separate} "
-                      f"gelu_launches={gelu_launches}")
+                      f"gelu_launches={gelu_launches} sigmoid_launches={sigmoid_launches}")
+    check(sigmoid_launches == N_IMAGES // BATCH, f"sigmoid launches {sigmoid_launches} != {N_IMAGES // BATCH}")
     depth = sum(SWIN_B448_DEPTHS)  # one window-kernel and one GELU launch per block per batch
     check(win_launches == depth * (N_IMAGES // BATCH),
           f"window launches {win_launches} != {depth * (N_IMAGES // BATCH)}")
@@ -2182,7 +2269,7 @@ def swin_phase(work: Path, lib: Path, labels: Path, cfg: Path) -> tuple[int, int
     )
     check(report["finite"], "validate-checkpoint: non-finite forward")
     check(report["max_prob_deviation"] <= 0.02, "validate-checkpoint: deviation over 0.02")
-    return win_launches, separate, ln_launches, gelu_launches
+    return win_launches, separate, ln_launches, gelu_launches, sigmoid_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3234,6 +3321,224 @@ def _file_row(db: Path, path: Path) -> tuple:
 
 
 
+# ---------------------------------------------------------------------------
+# Multi-device: every sharded path against the single-device path
+# ---------------------------------------------------------------------------
+
+MD_ENTRIES = 4  # mesh entries: the cards when there are several, else one card repeated
+MD_ANN_N = 100_000
+MD_QUERY_FILES = 20_000
+
+
+def md_devices() -> list[str]:
+    """Four mesh entries: distinct cards where there are several (round
+    robin), else ``cuda:0`` four times (four shards, separate tensors)."""
+    import torch
+
+    return [f"cuda:{i % torch.cuda.device_count()}" for i in range(MD_ENTRIES)]
+
+
+def _md_tagger_phase(devices: list[str]) -> tuple[int, int, int]:
+    """ViT-B/448 (8192 labels, seeded weights, the fast forward) at data=4
+    and at data=2, model=2 against the single-device tagger on the same 32
+    images: probabilities within the JAX test's 3e-2; every shard's tensors
+    on its entry. Returns the kernel-1, GELU and sigmoid launches of the two
+    sharded forwards."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.models.labels import synthetic_labels
+    from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
+    from kobato_eyes_tpu_torch.ops import attention, gelu, xla_math
+    from kobato_eyes_tpu_torch.parallel.mesh import make_mesh
+
+    labels = synthetic_labels(N_LABELS)
+    single = WD14Tagger(labels=labels, device=DEVICE)
+    state = single._model.state_dict()
+    rng = np.random.default_rng(51)
+    batch = single.prepare_batch_from_rgb([rng.integers(0, 256, size=(448, 448, 3), dtype=np.uint8)
+                                           for _ in range(BATCH)])
+    want = single.forward_probs(batch)
+    single_ms = cuda_ms(lambda: single.forward_probs(batch), iters=3)
+    depth = single.cfg.depth
+    totals = [0, 0, 0]
+    for data, model in ((4, 1), (2, 2)):
+        mesh = make_mesh(data=data, model=model, devices=devices)
+        tagger = WD14Tagger(labels=labels, mesh=mesh, params=state)
+        fwd = tagger._mesh_forward
+        for r, row in enumerate(fwd.rows):
+            for m, shard in enumerate(row):
+                check(all(p.device == mesh.devices[r, m] for p in shard.parameters()),
+                      f"tagger shard ({r}, {m}) off its entry {mesh.devices[r, m]}")
+        check(fwd.split == ((1, 1, 1) if model == 1 else (2, 2, 2)), f"split {fwd.split} at {data}x{model}")
+        attention.launches = gelu.launches = xla_math.launches = 0
+        got = tagger.forward_probs(batch)
+        synchronize()
+        counts = (attention.launches, gelu.launches, xla_math.launches)
+        expect = (data * model * depth if model > 1 else data * depth,) * 2 + (1,)
+        check(counts == expect, f"tagger {data}x{model}: launches (attention, gelu, sigmoid) {counts} != {expect}")
+        totals = [a + b for a, b in zip(totals, counts)]
+        check(tuple(got.shape) == (BATCH, N_LABELS) and bool(torch.isfinite(got).all()), "sharded probs")
+        dev = float((got - want).abs().max())
+        ms = cuda_ms(lambda: tagger.forward_probs(batch), iters=3)
+        results = tagger.infer_batch_prepared(batch)
+        print(f"multidevice tagger vit-b448 data={data} model={model} on {devices}: max |dp| vs one device "
+              f"{dev:.3e} (tol 3e-2), kernel-1 launches {counts[0]} (rows x model shards x {depth} layers), "
+              f"gelu {counts[1]}, sigmoid {counts[2]}; forward {ms:.2f} ms vs one device {single_ms:.2f} ms; "
+              f"{len(results)} results")
+        check(dev <= 3e-2, f"tagger {data}x{model}: probabilities {dev} apart from one device")
+        check(len(results) == BATCH, "sharded infer_batch_prepared")
+        del tagger, fwd
+    del single
+    torch.cuda.empty_cache()
+    return tuple(totals)
+
+
+def _md_dup_phase(mesh) -> None:
+    """The 70k dup population through the mesh-sharded scan against the
+    single-device engine's host and device routes: clusters identical."""
+    from pathlib import Path as _P
+
+    import numpy as np
+
+    from kobato_eyes_tpu_torch.dup.engine import TpuDuplicateScanner, cluster_ids
+    from kobato_eyes_tpu_torch.dup.types import DuplicateFileMeta, DuplicateScanConfig
+
+    hashes = synth_hashes(N_DUP, DUP_SEED)
+    sizes = np.random.default_rng(DUP_SEED + 1).integers(10_000, 5_000_000, size=N_DUP)
+    files = [DuplicateFileMeta(file_id=i, path=_P(f"/bench/img_{i:07d}.png"), size=int(sizes[i]),
+                               width=None, height=None, phash=int(hashes[i])) for i in range(N_DUP)]
+    config = DuplicateScanConfig(hamming_threshold=8)
+    host = cluster_ids(TpuDuplicateScanner(config, device=DEVICE).build_clusters(files))
+    device = cluster_ids(TpuDuplicateScanner(config, device=DEVICE, host_scan_max=0).build_clusters(files))
+    sharded = TpuDuplicateScanner(config, mesh=mesh)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = cluster_ids(sharded.build_clusters(files))
+        synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"multidevice dup {N_DUP}: sharded over {dict(mesh.shape)} {len(got)} clusters, wall "
+          f"{walls[0]:.1f} / {walls[1]:.1f} ms (first / warm); equal to the host and device routes")
+    check(got == host == device and len(got) > 1000, "sharded dup clusters != the single-device routes")
+
+    # the host/device crossover that KET_DUP_HOST_SCAN_MAX=probe derives on this host and card
+    from kobato_eyes_tpu_torch.ops import hamming
+
+    probe = hamming.probe_crossover(device=DEVICE)
+    check(4096 <= probe["derived_host_scan_max"] <= 1 << 22, f"crossover probe {probe}")
+    print(f"dup crossover probe: {json.dumps(probe)}")
+
+
+def _md_query_phase(work: Path, mesh) -> None:
+    """20 000 files: every parity query through ``search_epoch(mesh=)``
+    against the single-device engine (ids and relevance), and an unshardable
+    3-row mesh served on one device."""
+    from kobato_eyes_tpu_torch.parallel.mesh import Mesh
+    from kobato_eyes_tpu_torch.query import engine, sharded
+
+    conn, nnz = _write_query_catalog(work / "multidevice" / "catalog.sqlite3", MD_QUERY_FILES, 2_000, seed=11)
+    try:
+        epoch = engine.build_epoch(conn, version=1, device=DEVICE)
+    finally:
+        conn.close()
+    queries = _parity_queries()
+    t_single = t_sharded = 0.0
+    for i, query in enumerate(queries):
+        kw = dict(thresholds=THRESHOLD_SETS[i % 3], order_by=ORDERINGS[i % 4], limit=200, offset=(0, 7)[i % 2])
+        t0 = time.perf_counter()
+        want = engine.search_epoch(epoch, query, **kw)
+        t1 = time.perf_counter()
+        got = engine.search_epoch(epoch, query, mesh=mesh, **kw)
+        t_sharded += time.perf_counter() - t1
+        t_single += t1 - t0
+        check([(r.file_id, r.relevance) for r in got] == [(r.file_id, r.relevance) for r in want],
+              f"sharded query {query!r} != one device")
+    shards = sharded._shard_epoch(epoch, mesh).shards
+    check(sum(int(s.rows_dev.numel()) for s in shards) == nnz, "row shards' postings")
+    check(all(s.device == mesh.devices[r, 0] for r, s in enumerate(shards)), "row shards off their entries")
+    odd = Mesh([[DEVICE]] * 3)
+    want = engine.search_epoch(epoch, "tag_0000 OR tag_0001", limit=50)
+    check(engine.search_epoch(epoch, "tag_0000 OR tag_0001", limit=50, mesh=odd) == want, "unshardable mesh")
+    print(f"multidevice query: {MD_QUERY_FILES} files, {nnz} postings, n_pad {epoch.n_pad} over "
+          f"{dict(mesh.shape)}: {len(queries)} queries equal one device's (ids, relevance); "
+          f"{t_sharded / len(queries) * 1e3:.2f} ms a query sharded, {t_single / len(queries) * 1e3:.2f} ms on one "
+          f"device; a 3-row mesh served on one device")
+
+
+def _md_ann_phase(mesh) -> None:
+    """Flat and IVF search at 100 000 x 512 (planted duplicate rows in
+    different shards) row-sharded against one device: ids equal, ties
+    lowest row first (held to the f64 evaluation as ``ann_phase`` holds
+    the single index), IVF through a shared quantizer; sharded training's
+    recall with every list probed."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.index.flat import FlatIndex
+    from kobato_eyes_tpu_torch.index.ivf import IvfFlatIndex, kmeans, recall_at_k
+
+    rng = np.random.default_rng(61)
+    vecs = rng.standard_normal((MD_ANN_N, ANN_DIM)).astype(np.float32)
+    src = rng.choice(MD_ANN_N, size=ANN_PLANTED, replace=False)
+    for j, row in enumerate(src):  # each source copied to rows a shard apart
+        for c in range(1, MD_ENTRIES):
+            vecs[(row + c * MD_ANN_N // MD_ENTRIES + j) % MD_ANN_N] = vecs[row]
+    unit = vecs / np.maximum(np.linalg.norm(vecs, axis=1, keepdims=True), 1e-30)
+    q = np.concatenate([unit[src[: ANN_QUERIES // 2]], rng.standard_normal((ANN_QUERIES // 2, ANN_DIM))]).astype(np.float32)
+    single = FlatIndex(vecs, device=DEVICE)
+    sharded = FlatIndex(vecs, mesh=mesh)
+    check(all(s.device == mesh.devices[r, 0] for r, s in enumerate(sharded._corpus)), "flat shards off their entries")
+    s0, i0 = single.search(q, k=ANN_K)
+    s1, i1 = sharded.search(q, k=ANN_K)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    want_s, want_r = _f64_topk(torch.from_numpy(unit).to(DEVICE), torch.from_numpy(qn).to(DEVICE), ANN_K)
+    ties, near = check_against_f64(i1, s1, want_s, want_r, "sharded flat")
+    check(np.array_equal(i0, i1), "sharded flat ids != one device")
+    check(np.allclose(s0, s1, rtol=1e-6, atol=0), "sharded flat scores != one device (rtol 1e-6)")
+    flat_ms = (cuda_ms(lambda: single.search(q, k=ANN_K), iters=5), cuda_ms(lambda: sharded.search(q, k=ANN_K), iters=5))
+
+    n_clusters = int(np.sqrt(MD_ANN_N))
+    quant = kmeans(unit, n_clusters, iters=IVF_ITERS, seed=0, device=DEVICE)
+    ivf0 = IvfFlatIndex(vecs, n_clusters=n_clusters, quantizer=quant, device=DEVICE)
+    ivf1 = IvfFlatIndex(vecs, n_clusters=n_clusters, quantizer=quant, mesh=mesh)
+    a, ia = ivf0.search(q, k=ANN_K, nprobe=IVF_NPROBE)
+    b, ib = ivf1.search(q, k=ANN_K, nprobe=IVF_NPROBE)
+    check(np.array_equal(ia, ib), "sharded IVF ids != one device")
+    fin = np.isfinite(a)
+    check(np.array_equal(fin, np.isfinite(b)) and np.allclose(a[fin], b[fin], rtol=1e-6, atol=0),
+          "sharded IVF scores != one device")
+    ivf_ms = (cuda_ms(lambda: ivf0.search(q, k=ANN_K, nprobe=IVF_NPROBE), iters=5),
+              cuda_ms(lambda: ivf1.search(q, k=ANN_K, nprobe=IVF_NPROBE), iters=5))
+    trained = IvfFlatIndex(vecs, n_clusters=n_clusters, mesh=mesh, train_iters=IVF_ITERS)
+    recall_all = recall_at_k(trained.search(q, k=ANN_K, nprobe=trained.n_lists)[1], i0, k=ANN_K)
+    recall = recall_at_k(trained.search(q, k=ANN_K, nprobe=IVF_NPROBE)[1], i0, k=ANN_K)
+    check(recall_all == 1.0, f"sharded-trained IVF recall with every list probed {recall_all} != 1")
+    print(f"multidevice ann {MD_ANN_N}x{ANN_DIM} over {dict(mesh.shape)}: flat ids equal one device's "
+          f"({ties} tie groups lowest row first, {near} near-tie groups), search {flat_ms[1]:.3f} ms vs "
+          f"{flat_ms[0]:.3f} ms on one device; IVF ({n_clusters} clusters, shared quantizer, nprobe "
+          f"{IVF_NPROBE}) ids equal, {ivf_ms[1]:.3f} vs {ivf_ms[0]:.3f} ms; sharded training recall@{ANN_K} "
+          f"{recall:.3f} at nprobe {IVF_NPROBE}, {recall_all:.3f} with every list")
+
+
+def multidevice_phase(work: Path) -> tuple[int, int, int]:
+    """The sharded paths on a four-entry mesh (``md_devices``) against the
+    single-device paths: the tagger, the dup scan, the query engine, flat
+    and IVF search. Returns the tagger forwards' kernel-1, GELU and sigmoid
+    launches."""
+    from kobato_eyes_tpu_torch.parallel.mesh import make_mesh
+
+    devices = md_devices()
+    t0 = time.perf_counter()
+    launches = _md_tagger_phase(devices)
+    mesh = make_mesh(data=MD_ENTRIES, model=1, devices=devices)
+    _md_dup_phase(mesh)
+    _md_query_phase(work, mesh)
+    _md_ann_phase(mesh)
+    print(f"multidevice phase: {time.perf_counter() - t0:.1f} s on {devices}")
+    return launches
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -3268,15 +3573,16 @@ def main() -> int:
     window = window_attention_phase()
     ln = layernorm_residual_phase()
     act, act_backward = gelu_phase()
+    sigmoid = sigmoid_phase()
     hamming = pairwise_hamming_phase()
-    kernels = [attn, attn_separate, window, ln, hamming, act, act_backward]
+    kernels = [attn, attn_separate, window, ln, hamming, act, act_backward, sigmoid]
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_root))
     try:
         lib, labels, cfg = write_workspace(work)
-        attn["launches"], sep_vit, gelu_vit = slice_phase(work, lib, labels, cfg)
-        window["launches"], sep_swin, ln["launches"], gelu_swin = swin_phase(work, lib, labels, cfg)
+        attn["launches"], sep_vit, gelu_vit, sig_vit = slice_phase(work, lib, labels, cfg)
+        window["launches"], sep_swin, ln["launches"], gelu_swin, sig_swin = swin_phase(work, lib, labels, cfg)
         query_cli_phase(work, lib, labels, cfg)
         hamming["launches"] = dup_scan_phase()
         dup_cli_phase(work)
@@ -3291,6 +3597,10 @@ def main() -> int:
         attn_separate["launches"] = sep_vit + sep_swin + sep_ann + sep_up
         act["launches"] = gelu_vit + gelu_swin + gelu_train
         hamming["launches"] += serve_phase(work)
+        md_attn, md_gelu, md_sigmoid = multidevice_phase(work)
+        attn["launches"] += md_attn
+        act["launches"] += md_gelu
+        sigmoid["launches"] = sig_vit + sig_swin + md_sigmoid
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")

@@ -16,6 +16,8 @@ Layering (low to high; enforced by tests/test_torch_imports.py):
     device   -> device selection
     ops      -> hand-written CUDA kernels with their plain torch versions,
                 and the device passes of hashing and the banded scan
+    parallel -> device meshes, sharding rules, the sharded dup scan,
+                multi-host initialization
     db       -> host durability catalog (SQLite)
     models   -> ViT / SwinV2 taggers (nn.Module), pre/postprocess
     sig      -> pHash/dHash signatures: host decode + batched device pass

@@ -328,12 +328,24 @@ def cmd_dup(args) -> int:
         size_ratio=args.size_ratio if args.size_ratio is not None else settings.dup.size_ratio,
         bucket_pair_cap=settings.dup.bucket_pair_cap,
     )
+    # multi-device: shard the candidate compare over the configured mesh when
+    # more than one device of --device's kind is visible (single-device runs
+    # stay on the resident-scan path)
     import torch
 
-    if str(args.device).startswith("cuda") and torch.cuda.device_count() > 1:
-        print(f"dup: {torch.cuda.device_count()} GPUs visible; the scan runs on one "
-              f"({args.device}): the sharded scan is not ported yet", file=sys.stderr)
-    scanner = TpuDuplicateScanner(cfg, device=args.device)
+    from kobato_eyes_tpu_torch.parallel import mesh as pmesh
+
+    mesh = None
+    devices = pmesh.visible_devices(torch.device(args.device).type)
+    if len(devices) > 1:
+        mesh = pmesh.make_mesh(
+            data=settings.mesh.data_parallel, model=settings.mesh.model_parallel, devices=devices
+        )
+        if int(mesh.shape.get("data", 1)) > 1:
+            # the scanner may still fall back to one device for pathological
+            # bucket runs (ops/hamming.py logs that case)
+            print(f"dup scan sharded over {mesh.shape} mesh", file=sys.stderr)
+    scanner = TpuDuplicateScanner(cfg, mesh=mesh, device=args.device)
     if args.sweep:
         # interactive-slider workload: one scan, clusters for every threshold
         sweep = scanner.build_clusters_sweep(metas, range(0, cfg.hamming_threshold + 1))

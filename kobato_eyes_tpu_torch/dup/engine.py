@@ -37,7 +37,7 @@ class TpuDuplicateScanner:
         config: DuplicateScanConfig | None = None,
         *,
         block: int = 2048,
-        mesh=None,  # raises: the sharded scan comes with the multi-device slice
+        mesh=None,  # parallel.mesh.Mesh: shard the candidate scan over its data rows
         host_scan_max: int | None = None,  # host/device crossover override
         device=None,  # where the resident scan runs (cuda when None)
     ) -> None:

@@ -24,6 +24,7 @@ import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -134,5 +135,10 @@ def _corpus_of(index) -> tuple[np.ndarray, np.ndarray]:
     """(vectors, ids) living on the device index (unit-normalized copy),
     read back to the host."""
     n = len(index)
-    corpus = index._corpus_t.t() if getattr(index, "_corpus_t", None) is not None else index._corpus
+    if getattr(index, "_corpus_t", None) is not None:
+        corpus = index._corpus_t.t()
+    elif isinstance(index._corpus, list):  # row shards over a mesh
+        corpus = torch.cat([s.cpu() for s in index._corpus])
+    else:
+        corpus = index._corpus
     return corpus[:n].cpu().numpy().astype(np.float32), np.asarray(index.ids[:n], np.int64)

@@ -11,6 +11,12 @@ duplicates (the same image twice) give equal scores. So the final top-k
 runs over one 64-bit key per entry: the score's f32 bits made to sort as an
 integer in the high word, the inverted column in the low word
 (``topk_rows``), over 2k candidates a row when they hold every tie.
+
+With ``mesh``, the corpus row-shards over the mesh's ``data`` axis, one
+block a data row on its first entry: each shard runs its (Q, N/D) product
+and local top-k, padding rows masked to -inf, and the shard-major gathered
+candidates merge through the same keyed top-k (``merged_topk``), which
+orders ties as the single index does.
 """
 
 from __future__ import annotations
@@ -70,9 +76,44 @@ def _search_kernel(queries: torch.Tensor, corpus_t: torch.Tensor, *, k: int):
     return topk_rows(sims, k)
 
 
+def shard_rows(vecs: np.ndarray, mesh) -> list[torch.Tensor]:
+    """(N, D) host rows padded with zero rows to a multiple of the data axis,
+    one contiguous block a data row on its first entry."""
+    rows = mesh.local_devices[:, 0]
+    rps = -(-len(vecs) // len(rows))
+    pad = rps * len(rows) - len(vecs)
+    if pad:
+        vecs = np.concatenate([vecs, np.zeros((pad, *vecs.shape[1:]), vecs.dtype)])
+    return [torch.from_numpy(np.ascontiguousarray(vecs[s * rps : (s + 1) * rps])).to(dev)
+            for s, dev in enumerate(rows)]
+
+
+def gather_merge(parts: list[tuple[torch.Tensor, torch.Tensor]], k: int, device: torch.device):
+    """Shard-major gathered per-shard (scores, global rows) candidates on
+    ``device`` -> the final top-k (scores, rows)."""
+    s_flat = torch.cat([s.to(device) for s, _ in parts], dim=1)
+    r_flat = torch.cat([r.to(device) for _, r in parts], dim=1)
+    return merged_topk(s_flat, r_flat, k)
+
+
+def _sharded_flat_search(shards: list[torch.Tensor], n: int, q: torch.Tensor, k: int):
+    """Row-sharded exact search: per-shard matmul + top-k, gathered merge."""
+    rps = shards[0].shape[0]
+    k_local = min(k, rps)
+    parts = []
+    for shard, corpus_local in enumerate(shards):
+        sims = torch.matmul(q.to(corpus_local.device), corpus_local.t())  # (Q, rps)
+        col = torch.arange(rps, device=sims.device) + shard * rps
+        sims = torch.where(col < n, sims, -torch.inf)  # mask the padding rows
+        s, idx = topk_rows(sims, k_local)
+        parts.append((s, torch.where(torch.isfinite(s), idx + shard * rps, -1)))
+    return gather_merge(parts, k, q.device)
+
+
 class FlatIndex:
     """Device-resident exact cosine/IP index over an (N, D) f32 corpus on
-    ``device`` (default ``cuda``; raises without a GPU)."""
+    ``device`` (default ``cuda``; raises without a GPU), or row-sharded over
+    ``mesh``'s data axis (results on its first entry)."""
 
     def __init__(
         self,
@@ -83,8 +124,6 @@ class FlatIndex:
         mesh=None,
         device: str | torch.device | None = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError("the sharded flat search comes with the multi-device slice")
         vecs = np.asarray(vectors, dtype=np.float32)
         self.normalize = bool(normalize)  # persisted by index/auto.py sidecar
         if normalize:
@@ -92,8 +131,13 @@ class FlatIndex:
             vecs = vecs / np.maximum(norms, 1e-30)
         self.ids = np.arange(len(vecs), dtype=np.int64) if ids is None else np.asarray(ids, np.int64)
         self._n = len(vecs)
-        self.device = resolve_device(device)
-        self._corpus_t = torch.from_numpy(np.ascontiguousarray(vecs)).to(self.device).t()  # (D, N)
+        self._corpus = None  # the row shards, with a mesh
+        self.device = mesh.local_devices[0, 0] if mesh is not None and device is None else resolve_device(device)
+        if mesh is not None and int(mesh.shape.get("data", 1)) > 1:
+            self._corpus = shard_rows(vecs, mesh)  # (N_pad / D, D) a data row
+            self._corpus_t = None
+        else:
+            self._corpus_t = torch.from_numpy(np.ascontiguousarray(vecs)).to(self.device).t()  # (D, N)
         self.dim = vecs.shape[1]
 
     def __len__(self) -> int:
@@ -106,7 +150,11 @@ class FlatIndex:
         q = q / np.maximum(norms, 1e-30)
         k = min(k, len(self))
         with torch.inference_mode():
-            scores, idx = _search_kernel(torch.from_numpy(q).to(self.device), self._corpus_t, k=k)
+            qd = torch.from_numpy(q).to(self.device)
+            if self._corpus is not None:
+                scores, idx = _sharded_flat_search(self._corpus, self._n, qd, k)
+            else:
+                scores, idx = _search_kernel(qd, self._corpus_t, k=k)
             scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
         return scores, self.ids[idx]
 

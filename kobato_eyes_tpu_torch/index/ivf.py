@@ -11,6 +11,14 @@ the last bit from run to run there: a differently rounded quantizer, not a
 bug. The ``quantizer=`` seam takes precomputed (centroids, assignments) for
 search identity; the port's own training is held by recall.
 
+With ``mesh``, the corpus and its list assignment row-shard over the mesh's
+``data`` axis (``flat.shard_rows``). Training runs the Lloyd step on each
+shard's real rows and sums the per-shard centroid sums and counts on the
+first entry in shard order (the psums GSPMD inserts for the JAX package);
+search probes the lists on every shard from the same centroids, takes each
+shard's masked top-k and merges the shard-major candidates
+(``flat.gather_merge``).
+
 A build records the timers ``ivf.upload`` (the corpus to the device),
 ``ivf.train`` (the Lloyd steps and the copy of their result) and
 ``ivf.lists`` (list assembly and its upload).
@@ -25,22 +33,31 @@ import numpy as np
 import torch
 
 from kobato_eyes_tpu_torch.device import resolve_device
-from kobato_eyes_tpu_torch.index.flat import topk_rows
+from kobato_eyes_tpu_torch.index.flat import gather_merge, shard_rows, topk_rows
 from kobato_eyes_tpu_torch.utils.metrics import metrics
 
 logger = logging.getLogger(__name__)
 
 
-def _lloyd_step(data: torch.Tensor, centroids: torch.Tensor, *, n_clusters: int):
-    sims = torch.matmul(data, centroids.t())
-    assign = torch.argmax(sims, dim=1)  # first of equal maxima, as jnp.argmax
-    sums = torch.zeros_like(centroids).index_add_(0, assign, data)
-    counts = torch.bincount(assign, minlength=n_clusters).to(torch.float32)
+def _lloyd_step(shards: list[torch.Tensor], centroids: torch.Tensor, *, n_clusters: int):
+    """One Lloyd step over the corpus's row shards (one on a single device):
+    per-shard assignment and partial sums (``index_add_``), summed on the
+    centroids' device in shard order, as GSPMD's psums do for the JAX
+    package's sharded corpus."""
+    sums = counts = None
+    assigns = []
+    for data in shards:
+        assign = torch.argmax(torch.matmul(data, centroids.to(data.device).t()), dim=1)  # first of equal maxima
+        part = torch.zeros((n_clusters, data.shape[1]), dtype=data.dtype, device=data.device)
+        part = part.index_add_(0, assign, data).to(centroids.device)
+        count = torch.bincount(assign, minlength=n_clusters).to(centroids.device, torch.float32)
+        sums, counts = (part, count) if sums is None else (sums + part, counts + count)
+        assigns.append(assign.to(centroids.device))
     new = sums / torch.clamp(counts, min=1.0)[:, None]
     # empty clusters keep their previous centroid
     new = torch.where(counts[:, None] > 0, new, centroids)
     norms = torch.linalg.vector_norm(new, dim=1, keepdim=True)
-    return new / torch.clamp(norms, min=1e-30), assign
+    return new / torch.clamp(norms, min=1e-30), torch.cat(assigns)
 
 
 def kmeans(
@@ -49,7 +66,7 @@ def kmeans(
     *,
     iters: int = 10,
     seed: int = 0,
-    data_dev: torch.Tensor | None = None,
+    data_dev: torch.Tensor | list[torch.Tensor] | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Spherical k-means on ``device`` (default ``cuda``). Returns
@@ -58,7 +75,8 @@ def kmeans(
     ``data_dev``: an already-uploaded (and normalized) copy of ``data``;
     callers that keep the corpus resident (IvfFlatIndex) pass it so the
     build does not pay a second host-to-device transfer, and it sets the
-    device."""
+    device. A list of row shards (in row order, real rows only) trains over
+    them, the centroids on the first shard's device."""
     vecs = np.asarray(data, dtype=np.float32)
     rng = np.random.default_rng(seed)
     pick = rng.choice(len(vecs), size=n_clusters, replace=False)
@@ -72,11 +90,12 @@ def kmeans(
         # n_clusters init rows instead of the whole host array again
         init = vecs[pick]
         init = init / np.maximum(np.linalg.norm(init, axis=1, keepdims=True), 1e-30)
-    cent = torch.from_numpy(np.ascontiguousarray(init)).to(data_dev.device)
+    shards = data_dev if isinstance(data_dev, list) else [data_dev]
+    cent = torch.from_numpy(np.ascontiguousarray(init)).to(shards[0].device)
     assign = None
     with torch.inference_mode():
         for _ in range(iters):
-            cent, assign = _lloyd_step(data_dev, cent, n_clusters=n_clusters)
+            cent, assign = _lloyd_step(shards, cent, n_clusters=n_clusters)
         return cent.cpu().numpy(), assign.cpu().numpy()
 
 
@@ -103,9 +122,34 @@ def _ivf_search_kernel(
     return top_s, rows
 
 
+def _sharded_ivf_search(
+    shards: list[torch.Tensor], assign_shards: list[torch.Tensor], centroids: list[torch.Tensor], n: int,
+    q: torch.Tensor, *, nprobe: int, k: int,
+):
+    """Row-sharded IVF search: per-shard masked matmul + top-k, gathered
+    merge. The coarse probe (queries x centroids) is tiny and recomputed on
+    every shard from its copy of the centroids."""
+    rps = shards[0].shape[0]
+    k_local = min(k, rps)
+    parts = []
+    for shard, (corpus_local, assign_local, cents) in enumerate(zip(shards, assign_shards, centroids)):
+        qd = q.to(corpus_local.device)
+        _, probe = topk_rows(torch.matmul(qd, cents.t()), nprobe)
+        allowed = torch.zeros((qd.shape[0], cents.shape[0]), dtype=torch.bool, device=qd.device)
+        allowed.scatter_(1, probe, True)
+        sims = torch.matmul(qd, corpus_local.t())  # (Q, rps)
+        col = torch.arange(rps, device=qd.device) + shard * rps
+        sims = torch.where(allowed[:, assign_local] & (col < n), sims, -torch.inf)
+        s, idx = topk_rows(sims, k_local)
+        parts.append((s, torch.where(torch.isfinite(s), idx + shard * rps, -1)))
+    top_s, rows = gather_merge(parts, k, q.device)
+    return top_s, torch.where(torch.isfinite(top_s), rows, -1)
+
+
 class IvfFlatIndex:
     """Inverted-file flat index over unit vectors (cosine / inner product),
-    its corpus resident on ``device`` (default ``cuda``)."""
+    its corpus resident on ``device`` (default ``cuda``), or row-sharded over
+    ``mesh``'s data axis (results on its first entry)."""
 
     def __init__(
         self,
@@ -120,8 +164,6 @@ class IvfFlatIndex:
         quantizer: tuple[np.ndarray, np.ndarray] | None = None,  # (centroids, assign)
         device: str | torch.device | None = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError("the sharded IVF index comes with the multi-device slice")
         vecs = np.asarray(vectors, dtype=np.float32)
         norms = np.linalg.norm(vecs, axis=1, keepdims=True)
         vecs = vecs / np.maximum(norms, 1e-30)
@@ -131,9 +173,18 @@ class IvfFlatIndex:
             n_clusters = max(1, int(np.sqrt(n)))
         n_clusters = min(n_clusters, n)
         self.n_clusters = n_clusters
-        self.device = resolve_device(device)
+        self.device = mesh.local_devices[0, 0] if mesh is not None and device is None else resolve_device(device)
+        self._mesh = mesh if mesh is not None and int(mesh.shape.get("data", 1)) > 1 else None
         with metrics.timer("ivf.upload"):
-            corpus_dev = torch.from_numpy(vecs).to(self.device)  # one upload, reused by the search
+            if self._mesh is not None:
+                corpus_dev = shard_rows(vecs, self._mesh)  # one upload, reused by the search
+                rps = corpus_dev[0].shape[0]
+                # train on the REAL rows: zero padding rows would all assign to
+                # one cluster and drag its centroid toward zero
+                train_dev = [c[: max(0, min(rps, n - s * rps))] for s, c in enumerate(corpus_dev)]
+            else:
+                corpus_dev = torch.from_numpy(vecs).to(self.device)  # one upload, reused by the search
+                train_dev = corpus_dev
         if quantizer is not None:
             # precomputed (centroids, assignments): index restore, or a
             # quantizer trained elsewhere when search identity is asserted
@@ -143,7 +194,7 @@ class IvfFlatIndex:
         else:
             with metrics.timer("ivf.train"):
                 centroids, assign = kmeans(
-                    vecs, n_clusters, iters=train_iters, seed=seed, data_dev=corpus_dev
+                    vecs, n_clusters, iters=train_iters, seed=seed, data_dev=train_dev
                 )
         t_lists = time.perf_counter()
         counts = np.bincount(assign, minlength=n_clusters)
@@ -186,8 +237,15 @@ class IvfFlatIndex:
 
         self.n_lists = n_lists
         self._n = n
-        self._centroids = torch.from_numpy(np.ascontiguousarray(centroids[list_cluster])).to(self.device)
-        self._assign_list = torch.from_numpy(assign_list).to(self.device)
+        list_centroids = np.ascontiguousarray(centroids[list_cluster])
+        if self._mesh is not None:
+            rows = self._mesh.local_devices[:, 0]
+            self._centroids = [torch.from_numpy(list_centroids).to(dev) for dev in rows]
+            # padding rows take list 0; the search masks them by position
+            self._assign_list = [a.view(-1) for a in shard_rows(assign_list[:, None], self._mesh)]
+        else:
+            self._centroids = torch.from_numpy(list_centroids).to(self.device)
+            self._assign_list = torch.from_numpy(assign_list).to(self.device)
         metrics.observe("ivf.lists", time.perf_counter() - t_lists)
         # host-only: the search reads assign_list, not the member table
         self._members = members
@@ -205,10 +263,15 @@ class IvfFlatIndex:
         nprobe = min(nprobe, self.n_lists)
         k = min(k, len(self))
         with torch.inference_mode():
-            scores, rows = _ivf_search_kernel(
-                torch.from_numpy(q).to(self.device), self._centroids, self._assign_list,
-                self._corpus, nprobe=nprobe, k=k,
-            )
+            qd = torch.from_numpy(q).to(self.device)
+            if self._mesh is not None:
+                scores, rows = _sharded_ivf_search(
+                    self._corpus, self._assign_list, self._centroids, self._n, qd, nprobe=nprobe, k=k,
+                )
+            else:
+                scores, rows = _ivf_search_kernel(
+                    qd, self._centroids, self._assign_list, self._corpus, nprobe=nprobe, k=k,
+                )
             rows, scores = rows.cpu().numpy(), scores.cpu().numpy()
         ids = np.where(rows >= 0, self.ids[np.maximum(rows, 0)], -1)
         return scores, ids

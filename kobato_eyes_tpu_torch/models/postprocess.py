@@ -7,7 +7,8 @@ and is the same code as the JAX package's.
 
 Semantics preserved:
 * sigmoid applied only when outputs look like logits (any value outside [0,1],
-  tested over the whole batch);
+  tested over the whole batch), rounded as XLA rounds ``jax.nn.sigmoid``
+  (``ops/xla_math.py``: a CUDA pass on the card);
 * per-category threshold vector, unspecified categories -> 0.0, then a global
   score floor applied as max(threshold, floor);
 * top-K keeps the lower label index first among equal scores, as
@@ -29,6 +30,7 @@ from kobato_eyes_tpu_torch.models.base import (
     ThresholdMap,
 )
 from kobato_eyes_tpu_torch.models.labels import TagMeta
+from kobato_eyes_tpu_torch.ops.xla_math import xla_sigmoid_f32
 
 NEG_INF = float("-inf")
 
@@ -42,7 +44,7 @@ def probs_from_logits(logits: torch.Tensor) -> torch.Tensor:
     """Sigmoid-if-logits (reference wd14_onnx.py:546-548), batch-global test."""
     logits = logits.to(torch.float32)
     already_probs = (logits.min() >= 0.0) & (logits.max() <= 1.0)
-    return torch.where(already_probs, logits, torch.sigmoid(logits))
+    return torch.where(already_probs, logits, xla_sigmoid_f32(logits))
 
 
 def _stable_topk(masked: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -15,8 +15,14 @@ import-weights`` writes one) or a random init from a seeded
 SwinV2 (``models/swin.py``, the WD14 family's real arch). The JAX package
 keeps its checkpoints with orbax, which imports JAX; the port's format is a
 directory of ``model.safetensors`` (the state dict) beside
-``manifest.json`` (what the weights are for and where they came from). The
-mesh raises until the multi-device slice lands.
+``manifest.json`` (what the weights are for and where they came from).
+
+With ``mesh`` (``parallel/mesh.py``) the forward runs over its entries:
+the batch padded to a multiple of the data axis and split over the data
+rows, a ViT's heads, MLP width and classes split over the model axis
+(``models/mesh_forward.py``); the logits are gathered on the mesh's
+first entry in row order, where the padding is trimmed after the sigmoid,
+as the JAX tagger trims after its sharded forward.
 """
 
 from __future__ import annotations
@@ -131,8 +137,6 @@ class TorchTagger:
         logit scale and the CPB MLP's weights are rounded too, as the JAX
         tagger rounds its whole parameter tree).
         """
-        if mesh is not None:
-            raise NotImplementedError("multi-device tagging comes with the multi-device slice")
         explicit_cfg = swin is not None or vit is not None
         if swin is not None:
             arch = "swinv2"
@@ -140,7 +144,8 @@ class TorchTagger:
             arch = "vit"
         if arch not in ("vit", "swinv2"):
             raise ValueError(f"unknown arch {arch!r} (vit | swinv2)")
-        self.device = resolve_device(device)
+        # with a mesh, results gather on its first entry
+        self.device = mesh.local_devices[0, 0] if mesh is not None else resolve_device(device)
 
         if labels is None and labels_path is not None:
             labels = load_labels(labels_path)
@@ -246,7 +251,15 @@ class TorchTagger:
                 for param in model.parameters():
                     if param.dtype == torch.float32:
                         param.data = param.data.to(torch.bfloat16)
-        self._model = model.to(self.device).eval().requires_grad_(False)
+        self._mesh = mesh
+        self._mesh_forward = None
+        if mesh is not None:
+            from kobato_eyes_tpu_torch.models.mesh_forward import MeshForward
+
+            self._mesh_forward = MeshForward(model.eval().requires_grad_(False), mesh)
+            self._model = None
+        else:
+            self._model = model.to(self.device).eval().requires_grad_(False)
 
     # -- identity ---------------------------------------------------------
 
@@ -292,6 +305,8 @@ class TorchTagger:
         """(B, S, S, 3) uint8 -> (B, C) f32 probabilities on the device,
         queued without waiting for the device. A tensor already on the
         device (the fused tag+embed lane's one upload) is used as it is."""
+        if self._mesh_forward is not None:
+            return self._forward_probs_mesh(batch_u8)
         if isinstance(batch_u8, torch.Tensor):
             batch = batch_u8.to(self.device)
         else:
@@ -299,6 +314,19 @@ class TorchTagger:
         with torch.inference_mode():
             x = normalize_on_device(batch, self.spec)
             return probs_from_logits(self._model(x))
+
+    def _forward_probs_mesh(self, batch_u8: np.ndarray | torch.Tensor) -> torch.Tensor:
+        from kobato_eyes_tpu_torch.parallel.mesh import shard_batch
+
+        batch = batch_u8 if isinstance(batch_u8, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(batch_u8))
+        n = batch.shape[0]
+        pad = -n % self._mesh.shape["data"]
+        if pad:
+            batch = torch.cat([batch, batch.new_zeros((pad, *batch.shape[1:]))])
+        with torch.inference_mode():
+            blocks = [normalize_on_device(b, self.spec) for b in shard_batch(batch, self._mesh)]
+            logits = torch.cat([out.to(self.device) for out in self._mesh_forward(blocks)])
+            return probs_from_logits(logits)[:n]
 
     # -- full inference ---------------------------------------------------
 

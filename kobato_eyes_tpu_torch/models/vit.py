@@ -141,8 +141,13 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.empty(d_out, d_in, dtype=cfg.param_dtype))
         self.bias = nn.Parameter(torch.zeros(d_out, dtype=cfg.param_dtype)) if bias else None
 
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ W^T`` in ``dtype``, without the bias (a tensor-parallel
+        partial: the bias is added once, after the partials are summed)."""
+        return torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+        y = self.product(x)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -171,17 +176,27 @@ class LayerNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ViTConfig) -> None:
+    """``heads``: how many of the config's heads this module holds (all by
+    default; a tensor-parallel shard holds a contiguous run of them)."""
+
+    def __init__(self, cfg: ViTConfig, heads: int | None = None) -> None:
         super().__init__()
         self.cfg = cfg
-        self.qkv = Linear(cfg.hidden_dim, 3 * cfg.hidden_dim, cfg)
-        self.proj = Linear(cfg.hidden_dim, cfg.hidden_dim, cfg)
+        self.heads = cfg.num_heads if heads is None else heads
+        inner = self.heads * (cfg.hidden_dim // cfg.num_heads)
+        self.qkv = Linear(cfg.hidden_dim, 3 * inner, cfg)
+        self.proj = Linear(inner, cfg.hidden_dim, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(self.heads_out(x))
+
+    def heads_out(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, heads * head_dim): the attention of this module's heads,
+        before the output projection."""
         cfg = self.cfg
         b, t, _ = x.shape
-        heads = cfg.num_heads
-        head_dim = cfg.hidden_dim // heads
+        heads = self.heads
+        head_dim = cfg.hidden_dim // cfg.num_heads
         scale = head_dim**-0.5
         qkv = self.qkv(x).view(b, t, 3, heads, head_dim)  # timm's (3, H, D) row order
         if cfg.attn_impl == "pallas":
@@ -198,7 +213,7 @@ class Attention(nn.Module):
                 logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
                 weights = torch.softmax(logits * scale, dim=-1).to(cfg.dtype)
                 out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-        return self.proj(out.reshape(b, t, cfg.hidden_dim))
+        return out.reshape(b, t, heads * head_dim)
 
 
 class Mlp(nn.Module):
@@ -211,21 +226,24 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, dim, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.hidden(x))
+
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """The activation of fc1, before fc2."""
         h = self.fc1(x)
         if self.act == "quick_gelu":  # OpenAI CLIP: x * sigmoid(1.702 x)
-            h = quick_gelu(h)
-        else:  # XLA's erf or tanh sequence (ops/gelu.py): F.gelu rounds once
-            h = gelu(h, approximate=self.act == "gelu_tanh")
-        return self.fc2(h)
+            return quick_gelu(h)
+        # XLA's erf or tanh sequence (ops/gelu.py): F.gelu rounds once
+        return gelu(h, approximate=self.act == "gelu_tanh")
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig) -> None:
+    def __init__(self, cfg: ViTConfig, split: tuple[int, int, int] = (1, 1, 1)) -> None:
         super().__init__()
         self.norm1 = LayerNorm(cfg.hidden_dim, cfg)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, cfg.num_heads // split[0])
         self.norm2 = LayerNorm(cfg.hidden_dim, cfg)
-        self.mlp = Mlp(cfg.hidden_dim, cfg.mlp_dim, cfg)
+        self.mlp = Mlp(cfg.hidden_dim, cfg.mlp_dim // split[1], cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -265,9 +283,13 @@ class ViT(nn.Module):
     Input is NHWC float (preprocessed; see models/preprocess.py); the
     forward returns f32 logits, or the pooled features with
     ``features_only=True``.
+
+    ``split``: into how many tensor-parallel shards the attention heads, the
+    MLP width and the classes are cut; the module then holds one shard of
+    each (``models/mesh_forward.py`` runs them), under timm's names.
     """
 
-    def __init__(self, cfg: ViTConfig) -> None:
+    def __init__(self, cfg: ViTConfig, split: tuple[int, int, int] = (1, 1, 1)) -> None:
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_dim
@@ -275,27 +297,35 @@ class ViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d, dtype=cfg.param_dtype))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, d, dtype=cfg.param_dtype))
         self.norm_pre = LayerNorm(d, cfg) if cfg.ln_pre else None
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(Block(cfg, split) for _ in range(cfg.depth))
         self.norm = LayerNorm(d, cfg)
-        self.head = Linear(d, cfg.num_classes, cfg)
+        self.head = Linear(d, cfg.num_classes // split[2], cfg)
 
     def forward(self, images: torch.Tensor, *, features_only: bool = False) -> torch.Tensor:
         cfg = self.cfg
         b, h, w, _ = images.shape
         if h != cfg.image_size or w != cfg.image_size:
             raise ValueError(f"expected {cfg.image_size}px input, got {h}x{w}")
-        x = self.patch_embed(images)
-        cls = self.cls_token.to(cfg.dtype).expand(b, 1, cfg.hidden_dim)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(cfg.dtype)
-        if self.norm_pre is not None:
-            x = self.norm_pre(x)
+        x = self.embed(images)
         for block in self.blocks:
             x = block(x)
-        x = self.norm(x)
-        feat = x[:, 0] if cfg.pool == "cls" else x[:, 1:].mean(dim=1)
+        feat = self.pool(x)
         if features_only:
             return feat
         return self.head(feat).float()
+
+    def embed(self, images: torch.Tensor) -> torch.Tensor:
+        """Patch embedding, cls token, position embedding (and ln_pre)."""
+        cfg = self.cfg
+        x = self.patch_embed(images)
+        cls = self.cls_token.to(cfg.dtype).expand(x.shape[0], 1, cfg.hidden_dim)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(cfg.dtype)
+        return x if self.norm_pre is None else self.norm_pre(x)
+
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the pooled feature."""
+        x = self.norm(x)
+        return x[:, 0] if self.cfg.pool == "cls" else x[:, 1:].mean(dim=1)
 
 
 @torch.no_grad()

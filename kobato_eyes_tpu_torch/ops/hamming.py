@@ -8,12 +8,21 @@ the threshold and (optionally) their sizes pass the ratio filter. The edge
 set, and therefore the DSU clusters, is identical to the reference's.
 
 Populations up to ``host_scan_max`` (``KET_DUP_HOST_SCAN_MAX``, 262144 by
-default) run the host scan (``native/hamming_scan.cpp``, numpy spec beside
-it). Larger ones keep the hashes resident on the device: per band, sort by
-band key so buckets become runs, then compare each sorted row with the next
-``window`` rows as dense shifted compares that write a per-row bitmask; the
-host expands the bitmask to pairs. Oversized buckets (runs longer than the
-capped window) take an exact host pass.
+default, or ``probe``: the crossover :func:`probe_crossover` measures on
+this host and device) run the host scan (``native/hamming_scan.cpp``, numpy
+spec beside it). Larger ones keep the hashes resident on the device: per
+band, sort by band key so buckets become runs, then compare each sorted row
+with the next ``window`` rows as dense shifted compares that write a per-row
+bitmask; the host expands the bitmask to pairs. Oversized buckets (runs
+longer than the capped window) take an exact host pass. With a ``mesh``
+whose data axis is above 1, the windowed compare shards over its data rows
+(``parallel/sharded_scan.py``) at every population size.
+
+Beside the production scan, the JAX module's other scans: the dense
+all-pairs :func:`edge_scan` (row blocks against every column, with the
+optional size and cosine filters) and :func:`edge_scan_banded` (the windowed
+compare as a gather with an edge cap and retry), both held to
+:func:`edge_scan_np`.
 
 The device functions here are plain torch tensor code, not kernels. Torch
 has no popcount and its unsigned types lack shifts, so the resident
@@ -31,7 +40,7 @@ import numpy as np
 import torch
 
 from kobato_eyes_tpu_torch.device import resolve_device
-from kobato_eyes_tpu_torch.utils.bits import popcount64_np
+from kobato_eyes_tpu_torch.utils.bits import popcount64_np, u32pair_to_u64, u64_to_u32pair
 
 logger = logging.getLogger(__name__)
 
@@ -152,6 +161,77 @@ def _host_band_pairs(
 
 
 _NATIVE_SCAN_UNAVAILABLE = False
+_CROSSOVER_PROBE: dict | None = None
+
+
+def probe_crossover(n_probe: int = 20000, seed: int = 0, device=None) -> dict:
+    """Measure THIS host and device's host/device dup-scan crossover, once.
+
+    The static ``KET_DUP_HOST_SCAN_MAX`` default encodes the transfer
+    economics of one machine; this probe times the host band scan at
+    ``n_probe`` hashes and the device round-trip costs on ``device``
+    (default ``cuda``): upload bandwidth and the round trip of one tiny op,
+    and derives the population where the device path starts winning:
+    host_cost(n) ~= a*n vs device_cost(n) ~= b*n + c.
+
+    Cached per process. ``KET_DUP_HOST_SCAN_MAX=probe`` makes scanners use
+    the derived value.
+    """
+    global _CROSSOVER_PROBE
+    if _CROSSOVER_PROBE is not None:
+        return _CROSSOVER_PROBE
+    import time
+
+    device = resolve_device(device)
+
+    def sync() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    rng = np.random.default_rng(seed)
+    ph = rng.integers(0, 1 << 63, size=n_probe).astype(np.uint64)
+
+    # host side: min of 3 (first call may pay the native build)
+    host_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_window_scan(ph, band_bits=16, band_count=4, hamming_threshold=8)
+        host_s = min(host_s, time.perf_counter() - t0)
+    a = host_s / n_probe  # s/item, host
+
+    # device side: round trip of a tiny op (its result read back) + upload
+    tiny = torch.zeros(8, dtype=torch.int32, device=device)
+    (tiny + 1).cpu()  # warm
+    t0 = time.perf_counter()
+    for _ in range(3):
+        (tiny + 1).cpu()
+    rtt = (time.perf_counter() - t0) / 3
+
+    host = torch.from_numpy(ph.view(np.int64))
+    host.to(device)  # warm the transfer path
+    sync()
+    t0 = time.perf_counter()
+    host.to(device)
+    sync()
+    upload_s = time.perf_counter() - t0
+    b = upload_s / n_probe  # s/item, device transfer
+    # device fixed cost: a handful of round trips per scan
+    c = 6 * rtt
+
+    if a > b:
+        derived = int(c / (a - b))
+    else:
+        derived = 1 << 22  # transfers never win at sane sizes: keep host
+    derived = max(4096, min(derived, 1 << 22))
+    _CROSSOVER_PROBE = {
+        "derived_host_scan_max": derived,
+        "host_s_per_item": a,
+        "device_s_per_item": b,
+        "device_rtt_s": rtt,
+        "upload_mb_per_s": (n_probe * 8 / 1e6) / max(upload_s, 1e-9),
+        "n_probe": n_probe,
+    }
+    return _CROSSOVER_PROBE
 
 
 def _native_band_scan(
@@ -270,6 +350,235 @@ def _exact_size_ratio_keep(
     return (smaller <= 0) | (smaller / np.maximum(larger, 1.0) >= size_ratio)
 
 
+# The device filters compare sizes in f32 (sizes > 2^24 bytes quantize),
+# while the reference and edge_scan_np compare in f64. Device filters
+# therefore run with the threshold relaxed by this margin (so f32 rounding
+# can never DROP a pair the exact check keeps) and the surviving edge list —
+# tiny after Hamming pruning — is re-checked on host in exact f64.
+_SIZE_RATIO_F32_SLACK = 1e-5
+
+
+def _pairs_halves(ph_pairs: np.ndarray, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, 2) uint32 [hi, lo] pairs -> their halves as int64 tensors on ``device``."""
+    pairs = torch.from_numpy(np.ascontiguousarray(ph_pairs, dtype=np.int64)).to(device)
+    return pairs[:, 0], pairs[:, 1]
+
+
+def _size_ok(si: torch.Tensor, sj: torch.Tensor, size_ratio: float) -> torch.Tensor:
+    """The reference's ratio filter in f32 (unknown/zero sizes pass)."""
+    smaller = torch.minimum(si, sj)
+    larger = torch.maximum(si, sj)
+    return (smaller <= 0) | (smaller / torch.clamp_min(larger, 1.0) >= size_ratio)
+
+
+def _edge_scan_block(
+    hi: torch.Tensor,  # (N,) int64 high 32 bits
+    lo: torch.Tensor,  # (N,) int64 low 32 bits
+    keys: torch.Tensor,  # (N, B) int64 band keys (band_bits <= 32)
+    ok: torch.Tensor,  # (N, B) bool bucket-cap mask
+    sizes: torch.Tensor,  # (N,) float32 file sizes (0 = unknown)
+    emb: torch.Tensor,  # (N, D) float32 L2-normalized embeddings (D=1 dummy when unused)
+    emb_valid: torch.Tensor,  # (N,) bool
+    row_start: int,
+    hamming_threshold: int,
+    size_ratio: float,  # already an f32 value
+    cosine_threshold: float,  # already an f32 value
+    *,
+    block: int,
+    max_edges: int,
+    use_size: bool,
+    use_cosine: bool,
+):
+    """Scan rows [row_start, row_start+block) against all columns.
+
+    Returns (rows_local, cols, dists, n_edges): index tensors of shape
+    (max_edges,) padded with -1, plus the true edge count (for overflow
+    detection by the caller).
+    """
+    n = hi.shape[0]
+    rows = slice(row_start, row_start + block)
+    dist = popcount32(hi[rows, None] ^ hi[None, :]) + popcount32(lo[rows, None] ^ lo[None, :])
+    # LSH band parity: candidate iff any band slice matches within an
+    # un-capped bucket (both sides share the bucket, so one mask suffices)
+    band_hit = ((keys[rows, None, :] == keys[None, :, :]) & ok[rows, None, :]).any(dim=-1)
+    edge = band_hit & (dist <= hamming_threshold)
+    if use_size:
+        edge &= _size_ok(sizes[rows, None], sizes[None, :], size_ratio)
+    if use_cosine:
+        cos = torch.matmul(emb[rows], emb.t())
+        # reference semantics: missing/zero-norm embeddings pass the filter
+        both_valid = emb_valid[rows, None] & emb_valid[None, :]
+        edge &= ~both_valid | (cos >= cosine_threshold)
+    # upper triangle in global coordinates: j > i
+    gi = row_start + torch.arange(block, device=hi.device)[:, None]
+    gj = torch.arange(n, device=hi.device)[None, :]
+    edge &= gj > gi
+
+    n_edges = int(edge.sum())
+    r_hit, c_hit = torch.nonzero(edge, as_tuple=True)  # row-major, as jnp.nonzero
+    keep = min(n_edges, max_edges)
+    rows_local = torch.full((max_edges,), -1, dtype=torch.int64, device=hi.device)
+    cols = torch.full_like(rows_local, -1)
+    dists = torch.full_like(rows_local, -1)
+    rows_local[:keep] = r_hit[:keep]
+    cols[:keep] = c_hit[:keep]
+    dists[:keep] = dist[r_hit[:keep], c_hit[:keep]]
+    return rows_local, cols, dists, n_edges
+
+
+def edge_scan(
+    ph_pairs: np.ndarray,
+    keys_u64: np.ndarray,
+    bucket_ok: np.ndarray,
+    *,
+    hamming_threshold: int,
+    sizes: np.ndarray | None = None,
+    size_ratio: float | None = None,
+    embeddings: np.ndarray | None = None,
+    cosine_threshold: float | None = None,
+    block: int = 1024,
+    max_edges_per_block: int | None = None,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Full (dense, all-pairs) candidate scan on ``device`` (default
+    ``cuda``). Returns (i, j, dist) with i < j, deduplicated.
+
+    ``keys_u64`` must have band_bits <= 32 values (the default config is 16);
+    wider single-band configs should use exact-hash grouping instead.
+    """
+    n = ph_pairs.shape[0]
+    if n < 2:
+        return (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.int64))
+    if np.any(keys_u64 > 0xFFFFFFFF):
+        raise ValueError("band keys wider than 32 bits are not supported on device")
+    device = resolve_device(device)
+
+    block = min(block, n)
+    use_size = size_ratio is not None and size_ratio > 0
+    use_cosine = embeddings is not None and cosine_threshold is not None
+
+    hi, lo = _pairs_halves(ph_pairs, device)
+    keys_dev = torch.from_numpy(np.ascontiguousarray(keys_u64, dtype=np.int64)).to(device)
+    ok_dev = torch.from_numpy(np.ascontiguousarray(bucket_ok, dtype=bool)).to(device)
+    sizes_dev = torch.from_numpy(
+        (sizes if sizes is not None else np.zeros(n)).astype(np.float32)
+    ).to(device)
+    if use_cosine:
+        emb = np.asarray(embeddings, dtype=np.float32)
+        norms = np.linalg.norm(emb, axis=1)
+        valid = norms > 0
+        emb = np.where(valid[:, None], emb / np.maximum(norms, 1e-30)[:, None], 0.0).astype(np.float32)
+        emb_dev = torch.from_numpy(emb).to(device)
+        valid_dev = torch.from_numpy(valid).to(device)
+    else:
+        emb_dev = torch.zeros((n, 1), dtype=torch.float32, device=device)
+        valid_dev = torch.zeros(n, dtype=torch.bool, device=device)
+
+    if max_edges_per_block is None:
+        max_edges_per_block = max(4096, block * 64)
+
+    out_i: list[np.ndarray] = []
+    out_j: list[np.ndarray] = []
+    out_d: list[np.ndarray] = []
+    ratio = float(np.float32((size_ratio or 0.0) * (1.0 - _SIZE_RATIO_F32_SLACK)))
+    cos_thr = float(np.float32(cosine_threshold if cosine_threshold is not None else -2.0))
+    sizes64 = (sizes if sizes is not None else np.zeros(n)).astype(np.float64)
+
+    with torch.inference_mode():
+        for start in range(0, n, block):
+            # ragged tail: shift the window back so the block shape stays
+            # fixed; the re-scanned rows would re-emit their edges, so they
+            # are dropped explicitly
+            actual_start = min(start, n - block)
+            overlap = start - actual_start
+            cap = max_edges_per_block
+            while True:
+                rows_l, cols, dists, count = _edge_scan_block(
+                    hi, lo, keys_dev, ok_dev, sizes_dev, emb_dev, valid_dev,
+                    actual_start, int(hamming_threshold), ratio, cos_thr,
+                    block=block, max_edges=cap, use_size=use_size, use_cosine=use_cosine,
+                )
+                if count <= cap:
+                    break
+                cap = int(2 ** np.ceil(np.log2(count + 1)))
+            rows_l = rows_l[:count].cpu().numpy()
+            cols = cols[:count].cpu().numpy()
+            dists = dists[:count].cpu().numpy()
+            keep = rows_l >= overlap
+            out_i.append(actual_start + rows_l[keep].astype(np.int64))
+            out_j.append(cols[keep].astype(np.int64))
+            out_d.append(dists[keep].astype(np.int64))
+
+    if not out_i:
+        return (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.int64))
+    ei = np.concatenate(out_i)
+    ej = np.concatenate(out_j)
+    ed = np.concatenate(out_d)
+    if use_size:
+        keep = _exact_size_ratio_keep(ei, ej, sizes64, float(size_ratio))
+        ei, ej, ed = ei[keep], ej[keep], ed[keep]
+    return ei, ej, ed
+
+
+# ---------------------------------------------------------------------------
+# banded windowed scan (gather formulation)
+# ---------------------------------------------------------------------------
+#
+# The dense scan above evaluates all N^2 pairs; the reference only ever
+# touches pairs that share an LSH bucket. Per band, sort by band key so
+# buckets become contiguous runs, then compare each row only against the
+# next W sorted rows (W >= the largest run; rare oversized buckets fall back
+# to an exact per-bucket host pass): O(N * W * bands) work, the same edge
+# set as the reference's bucket loops.
+
+
+def _windowed_scan_bands(
+    sk: torch.Tensor,  # (B, N) int64 sorted band keys
+    shi: torch.Tensor,  # (B, N) int64 high 32 bits of the hashes in per-band sorted order
+    slo: torch.Tensor,  # (B, N) int64 low 32 bits
+    sok: torch.Tensor,  # (B, N) bool bucket-cap mask in sorted order
+    ssz: torch.Tensor,  # (B, N) float32 sizes in sorted order
+    hamming_threshold: int,
+    size_ratio: float,  # already an f32 value
+    *,
+    window: int,
+    max_edges: int,
+    use_size: bool,
+):
+    """Compare row i against rows i+1..i+window where band keys match, all
+    bands in one pass.
+
+    Returns (band, i_sorted, j_sorted, dist, n_edges), padded with -1.
+    """
+    nb, n = sk.shape
+    dev = sk.device
+    col = torch.arange(n, device=dev)[None, :]
+    dd = torch.arange(1, window + 1, device=dev)[:, None]
+    jj = col + dd  # (window, N)
+    valid = jj < n
+    jjc = torch.clamp_max(jj, n - 1).expand(nb, window, n)
+
+    def gather(arr: torch.Tensor) -> torch.Tensor:
+        return torch.gather(arr[:, None, :].expand(nb, window, n), 2, jjc)
+
+    eq = (sk[:, None, :] == gather(sk)) & valid
+    eq &= sok[:, None, :] & gather(sok)
+    dist = popcount32(shi[:, None, :] ^ gather(shi)) + popcount32(slo[:, None, :] ^ gather(slo))
+    mask = eq & (dist <= hamming_threshold)
+    if use_size:
+        mask &= _size_ok(ssz[:, None, :], gather(ssz), size_ratio)
+
+    n_edges = int(mask.sum())
+    b_hit, w_hit, i_hit = torch.nonzero(mask, as_tuple=True)  # row-major, as jnp.nonzero
+    keep = min(n_edges, max_edges)
+    out = torch.full((4, max_edges), -1, dtype=torch.int64, device=dev)
+    out[0, :keep] = b_hit[:keep]
+    out[1, :keep] = i_hit[:keep]
+    out[2, :keep] = i_hit[:keep] + w_hit[:keep] + 1
+    out[3, :keep] = dist[b_hit[:keep], w_hit[:keep], i_hit[:keep]]
+    return out[0], out[1], out[2], out[3], n_edges
+
+
 def _run_lengths(sorted_keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Starts and lengths of equal-key runs in a sorted array."""
     n = sorted_keys.shape[0]
@@ -277,6 +586,155 @@ def _run_lengths(sorted_keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     starts = np.concatenate([[0], boundaries])
     ends = np.concatenate([boundaries, [n]])
     return starts, ends - starts
+
+
+def _oversized_bucket_edges(
+    members_by_band,
+    ph64: np.ndarray,
+    hamming_threshold: int,
+    sizes64: np.ndarray,
+    size_ratio: float | None,
+    use_size: bool,
+) -> tuple[list[np.ndarray], list[np.ndarray], list[np.ndarray]]:
+    """Exact host all-pairs over each oversized bucket's members."""
+    out_i: list[np.ndarray] = []
+    out_j: list[np.ndarray] = []
+    out_d: list[np.ndarray] = []
+    for members in members_by_band:
+        m = members.shape[0]
+        if m < 2:
+            continue
+        h = ph64[members]
+        dist = popcount64_np(h[:, None] ^ h[None, :]).astype(np.int64)
+        mask = dist <= hamming_threshold
+        if use_size:
+            s = sizes64[members]
+            smaller = np.minimum(s[:, None], s[None, :])
+            larger = np.maximum(s[:, None], s[None, :])
+            mask &= (smaller <= 0) | (smaller / np.maximum(larger, 1.0) >= size_ratio)
+        iu = np.triu_indices(m, k=1)
+        sel = mask[iu]
+        out_i.append(members[iu[0][sel]].astype(np.int64))
+        out_j.append(members[iu[1][sel]].astype(np.int64))
+        out_d.append(dist[iu][sel])
+    return out_i, out_j, out_d
+
+
+def edge_scan_banded(
+    ph_pairs: np.ndarray,
+    keys_u64: np.ndarray,
+    bucket_ok: np.ndarray,
+    *,
+    hamming_threshold: int,
+    sizes: np.ndarray | None = None,
+    size_ratio: float | None = None,
+    max_window: int = 256,
+    max_edges_hint: int = 1 << 16,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """LSH-pruned candidate scan on ``device`` (default ``cuda``). Returns
+    deduplicated (i, j, dist), i < j.
+
+    Identical edge set to :func:`edge_scan_np` / the reference bucket loops.
+    Cosine filtering is not applied here (callers with embeddings post-filter
+    the edge list — it is tiny after Hamming pruning).
+    """
+    n = ph_pairs.shape[0]
+    if n < 2:
+        return (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.int64))
+    device = resolve_device(device)
+    bands = keys_u64.shape[1]
+    use_size = size_ratio is not None and size_ratio > 0 and sizes is not None
+    sizes64 = (sizes if sizes is not None else np.zeros(n)).astype(np.float64)
+    sizes_f = sizes64.astype(np.float32)
+    ph64 = u32pair_to_u64(ph_pairs)
+    ratio = float(np.float32((size_ratio or 0.0) * (1.0 - _SIZE_RATIO_F32_SLACK)))
+
+    out_i: list[np.ndarray] = []
+    out_j: list[np.ndarray] = []
+    out_d: list[np.ndarray] = []
+
+    # per-band sort on host (cheap), then one device pass for the windowed
+    # compare across all bands
+    orders = np.empty((bands, n), dtype=np.int64)
+    sks = np.empty((bands, n), dtype=np.uint32)
+    windows = []
+    runs_by_band = []
+    for b in range(bands):
+        keys_b = keys_u64[:, b].astype(np.uint32)
+        order = np.argsort(keys_b, kind="stable")
+        orders[b] = order
+        sks[b] = keys_b[order]
+        starts, lengths = _run_lengths(sks[b])
+        runs_by_band.append((starts, lengths))
+        max_run = int(lengths.max()) if lengths.size else 1
+        windows.append(min(max_run - 1, max_window, n - 1))
+    window = max(windows)
+    if window > 0:
+        # round up to a power of two (>= 8): extra rows are masked by the
+        # key-equality check, and a bounded set of window sizes keeps the
+        # shapes few
+        window = min(max(8, int(2 ** np.ceil(np.log2(window)))), max_window, n - 1)
+
+    if window > 0:
+        sph = ph_pairs[orders].astype(np.int64)  # (B, N, 2)
+        sok = np.take_along_axis(bucket_ok.T, orders, axis=1)  # (B, N)
+        ssz = sizes_f[orders]
+        with torch.inference_mode():
+            sk_dev = torch.from_numpy(sks.astype(np.int64)).to(device)
+            shi = torch.from_numpy(np.ascontiguousarray(sph[..., 0])).to(device)
+            slo = torch.from_numpy(np.ascontiguousarray(sph[..., 1])).to(device)
+            sok_dev = torch.from_numpy(np.ascontiguousarray(sok)).to(device)
+            ssz_dev = torch.from_numpy(np.ascontiguousarray(ssz)).to(device)
+            cap = max(max_edges_hint, 4096)
+            while True:
+                b_s, i_s, j_s, d_s, count = _windowed_scan_bands(
+                    sk_dev, shi, slo, sok_dev, ssz_dev, int(hamming_threshold), ratio,
+                    window=window, max_edges=cap, use_size=use_size,
+                )
+                if count <= cap:
+                    break
+                cap = int(2 ** np.ceil(np.log2(count + 1)))
+            b_s = b_s[:count].cpu().numpy()
+            i_s = i_s[:count].cpu().numpy()
+            j_s = j_s[:count].cpu().numpy()
+            d_s = d_s[:count].cpu().numpy()
+        gi = orders[b_s, i_s]
+        gj = orders[b_s, j_s]
+        ei_w = np.minimum(gi, gj).astype(np.int64)
+        ej_w = np.maximum(gi, gj).astype(np.int64)
+        ed_w = d_s.astype(np.int64)
+        if use_size:
+            keep = _exact_size_ratio_keep(ei_w, ej_w, sizes64, float(size_ratio))
+            ei_w, ej_w, ed_w = ei_w[keep], ej_w[keep], ed_w[keep]
+        out_i.append(ei_w)
+        out_j.append(ej_w)
+        out_d.append(ed_w)
+
+    # oversized buckets (> window pairs apart) fall back to an exact host
+    # pass; windowed hits inside them are re-found here and deduped below
+    members_by_band = []
+    for b in range(bands):
+        starts, lengths = runs_by_band[b]
+        for run in np.nonzero(lengths - 1 > window)[0]:
+            members = orders[b, starts[run] : starts[run] + lengths[run]]
+            members_by_band.append(members[bucket_ok[members, b]])
+    big_i, big_j, big_d = _oversized_bucket_edges(
+        members_by_band, ph64, hamming_threshold, sizes64, size_ratio, use_size
+    )
+    out_i += big_i
+    out_j += big_j
+    out_d += big_d
+
+    if not out_i:
+        return (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.int64))
+    ei = np.concatenate(out_i)
+    ej = np.concatenate(out_j)
+    ed = np.concatenate(out_d)
+    # dedup pairs discovered via multiple bands (or fallback re-finds)
+    key = ei * np.int64(n) + ej
+    _, first = np.unique(key, return_index=True)
+    return ei[first], ej[first], ed[first]
 
 
 # ---------------------------------------------------------------------------
@@ -380,19 +838,20 @@ class BandedHammingScanner:
         band_count: int = 4,
         max_window: int = 256,
         max_edges_hint: int = 1 << 16,
-        mesh=None,
+        mesh=None,  # parallel.mesh.Mesh: shard the compare over its data axis
         host_scan_max: int | None = None,
-        device=None,
+        device=None,  # the resident scan's device (the mesh's first entry with a mesh)
     ) -> None:
         if band_bits * band_count > 64 or band_bits > 32:
             raise ValueError("band config too large")
-        if mesh is not None:
-            raise NotImplementedError("the sharded scan comes with the multi-device slice of the port")
         self.band_bits = band_bits
         self.band_count = band_count
         self.max_window = max_window
         self.max_edges_hint = max_edges_hint
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        self.device = (
+            mesh.local_devices[0, 0] if mesh is not None and device is None else resolve_device(device)
+        )
         # Below this population the vectorized host scan beats the device
         # path's transfer+sort cost; above it the bitmask scan's
         # O(n*window) compare wins. Env override for other host speeds.
@@ -400,11 +859,13 @@ class BandedHammingScanner:
             self.host_scan_max = host_scan_max
         else:
             env = os.environ.get("KET_DUP_HOST_SCAN_MAX", "262144")
-            if env.strip().lower() == "probe":
-                raise NotImplementedError(
-                    "KET_DUP_HOST_SCAN_MAX=probe: the crossover probe is not ported yet"
-                )
-            self.host_scan_max = int(env)
+            # "probe": derive the crossover from a one-shot measurement of
+            # this host and device
+            self.host_scan_max = (
+                probe_crossover(device=self.device)["derived_host_scan_max"]
+                if env.strip().lower() == "probe"
+                else int(env)
+            )
         self._digest: bytes | None = None
         self._ph_dev: torch.Tensor | None = None
         self._order_dev: torch.Tensor | None = None
@@ -437,6 +898,79 @@ class BandedHammingScanner:
             self._order_host = self._order_dev.cpu().numpy()
         return self._order_host
 
+    def _sharded(self) -> bool:
+        return self._mesh is not None and int(self._mesh.shape.get("data", 1)) > 1
+
+    def _scan_sharded(
+        self,
+        ph_u64: np.ndarray,
+        *,
+        hamming_threshold: int,
+        sizes_f: np.ndarray,
+        use_size: bool,
+        size_ratio: float | None,
+        bucket_pair_cap: int | None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+        """Multi-device scan: the windowed compare sharded over the mesh's
+        data axis (parallel/sharded_scan.py), identical candidate semantics
+        to the single-device path (same band sort, same exact host
+        post-filters). Returns None when the largest bucket run exceeds
+        ``max_window`` — the caller falls back to the single-device path,
+        whose capped window + exact oversized-bucket host pass handle it."""
+        from kobato_eyes_tpu_torch.parallel.sharded_scan import sharded_window_scan
+
+        n = ph_u64.shape[0]
+        keys = band_keys_np(ph_u64, self.band_bits, self.band_count)
+        ok = bucket_ok_np(keys, bucket_pair_cap)
+        pairs = u64_to_u32pair(ph_u64)
+        orders = np.stack([
+            np.argsort(keys[:, b].astype(np.uint32), kind="stable")
+            for b in range(self.band_count)
+        ])
+        sk = np.take_along_axis(keys.T.astype(np.uint32), orders, axis=1)
+        sph = pairs[orders]
+        sok = np.take_along_axis(ok.T, orders, axis=1)
+
+        max_run = 1
+        for b in range(self.band_count):
+            _, counts = np.unique(keys[:, b], return_counts=True)
+            max_run = max(max_run, int(counts.max()))
+        window = min(max_run - 1, n - 1)
+        if window <= 0:
+            empty = np.empty(0, np.int64)
+            return empty, empty, empty
+        if window > self.max_window:
+            logger.info(
+                "sharded scan: bucket run %d exceeds max_window %d; "
+                "falling back to the single-device path", max_run, self.max_window,
+            )
+            return None
+
+        cap = max(self.max_edges_hint, 1 << 12)
+        while True:
+            try:
+                b, i_s, j_s, d = sharded_window_scan(
+                    self._mesh, sk, sph, sok,
+                    hamming_threshold=hamming_threshold, window=window,
+                    max_edges_per_shard=cap,
+                )
+                break
+            except ValueError:
+                cap *= 4  # overflow: retry with headroom (bounded by n*window)
+                if cap > 4 * n * window:
+                    raise
+
+        gi = orders[b, i_s]
+        gj = orders[b, j_s]
+        lo = np.minimum(gi, gj)
+        hi = np.maximum(gi, gj)
+        _, first = np.unique(lo * np.int64(n) + hi, return_index=True)
+        ei, ej, dist = lo[first], hi[first], d[first]
+        if use_size and size_ratio is not None:
+            keep = _exact_size_ratio_keep(ei, ej, sizes_f, float(size_ratio))
+            ei, ej, dist = ei[keep], ej[keep], dist[keep]
+        return ei.astype(np.int64), ej.astype(np.int64), dist.astype(np.int64)
+
     def scan(
         self,
         ph_u64: np.ndarray,
@@ -456,7 +990,7 @@ class BandedHammingScanner:
         use_size = size_ratio is not None and size_ratio > 0 and sizes is not None
         use_ok = bucket_pair_cap is not None
 
-        if n <= self.host_scan_max:
+        if n <= self.host_scan_max and not self._sharded():
             with metrics.timer("dup.scan.host"):
                 return host_window_scan(
                     ph_u64,
@@ -467,6 +1001,19 @@ class BandedHammingScanner:
                     size_ratio=size_ratio,
                     bucket_pair_cap=bucket_pair_cap,
                 )
+
+        if self._sharded():
+            sharded = self._scan_sharded(
+                ph_u64, hamming_threshold=hamming_threshold, sizes_f=sizes_f,
+                use_size=use_size, size_ratio=size_ratio,
+                bucket_pair_cap=bucket_pair_cap,
+            )
+            if sharded is not None:
+                return sharded
+            # a bucket run beyond max_window: the sharded compare would hold
+            # (bands, window, rows/shard) intermediates of many GB — the
+            # single-device path caps the window and handles oversized
+            # buckets exactly
 
         with metrics.timer("dup.scan.upload"):
             self._ensure_resident(ph_u64, sizes_f)
@@ -542,35 +1089,22 @@ class BandedHammingScanner:
 
         # oversized buckets -> exact host fallback
         if max_run - 1 > window:
-            ph64 = ph_u64
             if keys is None:
                 keys = band_keys_np(ph_u64, self.band_bits, self.band_count)
+            members_by_band = []
             for b in range(self.band_count):
                 keys_b = keys[:, b]
                 order = np.argsort(keys_b, kind="stable")
                 starts, lengths = _run_lengths(keys_b[order])
                 for run in np.nonzero(lengths - 1 > window)[0]:
                     members = order[starts[run] : starts[run] + lengths[run]]
-                    if use_ok:
-                        members = members[ok[members, b]]
-                    m = members.shape[0]
-                    if m < 2:
-                        continue
-                    h = ph64[members]
-                    dist = popcount64_np(h[:, None] ^ h[None, :]).astype(np.int64)
-                    mask = dist <= hamming_threshold
-                    if use_size:
-                        s = sizes_f[members]
-                        smaller = np.minimum(s[:, None], s[None, :])
-                        larger = np.maximum(s[:, None], s[None, :])
-                        mask &= (smaller <= 0) | (
-                            smaller / np.maximum(larger, 1.0) >= size_ratio
-                        )
-                    iu = np.triu_indices(m, k=1)
-                    sel = mask[iu]
-                    out_i.append(members[iu[0][sel]].astype(np.int64))
-                    out_j.append(members[iu[1][sel]].astype(np.int64))
-                    out_d.append(dist[iu][sel])
+                    members_by_band.append(members[ok[members, b]] if use_ok else members)
+            big_i, big_j, big_d = _oversized_bucket_edges(
+                members_by_band, ph_u64, hamming_threshold, sizes_f, size_ratio, use_size
+            )
+            out_i += big_i
+            out_j += big_j
+            out_d += big_d
 
         if not out_i:
             return (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.int64))
@@ -613,3 +1147,10 @@ def edge_scan_np(
     iu = np.triu_indices(n, k=1)
     mask = edge[iu]
     return iu[0][mask], iu[1][mask], dist[iu][mask]
+
+
+def hamming_distance_pairs(a_pairs: np.ndarray, b_pairs: np.ndarray) -> np.ndarray:
+    """Element-wise Hamming distance between two (N, 2) uint32 hash arrays."""
+    a = u32pair_to_u64(a_pairs)
+    b = u32pair_to_u64(b_pairs)
+    return popcount64_np(a ^ b)

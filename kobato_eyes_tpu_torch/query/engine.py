@@ -43,6 +43,7 @@ from __future__ import annotations
 import logging
 import sqlite3
 import time
+import weakref
 from dataclasses import dataclass, field
 from functools import cached_property
 from typing import Mapping, Sequence
@@ -738,6 +739,10 @@ class DeviceSearchResult:
 
 _ORDERINGS = ("relevance", "mtime", "path", "id")
 
+# epoch -> ids of meshes that cannot shard it (search_epoch's memoized
+# verdict); weak keys, so a superseded epoch drops its verdicts
+_UNSHARDABLE_VERDICTS: "weakref.WeakKeyDictionary[TagIndexEpoch, set]" = weakref.WeakKeyDictionary()
+
 
 def _lower_structure(
     expr: Expr | None, slots: dict[str, int], score_vals: list[float]
@@ -774,6 +779,8 @@ def _slot_tables_np(
     epoch: TagIndexEpoch,
     expr: Expr | None,
     thr: dict[int, float],
+    *,
+    offsets: np.ndarray | None = None,
 ):
     """Host-side operands for one query on one epoch.
 
@@ -781,8 +788,12 @@ def _slot_tables_np(
     query's structure (tag names abstracted into slot indices, score
     thresholds into operand slots), per slot the start and length of the
     tag's postings in the tag-major CSR and its f32 threshold gate, the f32
-    score thresholds and the six f32 category gates.
+    score thresholds and the six f32 category gates. ``offsets``: another
+    CSR's tag offsets over the same vocabulary (a row shard's,
+    ``query/sharded.py``); the epoch's own by default.
     """
+    if offsets is None:
+        offsets = epoch.offsets
     slots: dict[str, int] = {}
     score_vals: list[float] = []
     structure = _lower_structure(expr, slots, score_vals)
@@ -793,9 +804,9 @@ def _slot_tables_np(
         tid = epoch.name_to_tid.get(name)
         if tid is None:
             continue  # unknown tag: zero-length slice, mask stays all-False
-        lo = int(epoch.offsets[tid])
+        lo = int(offsets[tid])
         starts[k] = lo
-        lens[k] = int(epoch.offsets[tid + 1]) - lo
+        lens[k] = int(offsets[tid + 1]) - lo
         gates[k] = _case_gate(thr, int(epoch.tag_cats[tid]))
     score_thr = np.asarray(score_vals or [0.0], dtype=np.float32)
     cat_gate = np.asarray(
@@ -815,7 +826,8 @@ def _hit_rows(rows: torch.Tensor, hit: torch.Tensor, npad: int) -> torch.Tensor:
 def _mask_words(epoch: TagIndexEpoch, tables: tuple) -> torch.Tensor:
     """Evaluate one query's operands on the epoch's device; returns the file
     mask over ``n_pad`` rows packed into ``n_pad // 8`` uint8 words (still on
-    the device: nothing here waits for it).
+    the device: nothing here waits for it). ``epoch`` may be a row shard
+    (``query/sharded._Shard``), which carries the same fields.
 
     Term postings are CONTIGUOUS slices of the tag-major CSR, so each term
     mask touches only the queried tag's entries; only the ``score = t`` term
@@ -942,23 +954,47 @@ def search_epoch(
     order_by: str = "relevance",
     limit: int = 200,
     offset: int = 0,
-    mesh=None,
+    mesh=None,  # parallel.mesh.Mesh: shard mask evaluation over its data axis
 ) -> list[DeviceSearchResult]:
     """Execute a query against the epoch; ordering parity with search_files."""
     if order_by not in _ORDERINGS:
         raise ValueError(f"order_by must be one of {_ORDERINGS}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "file-row-sharded mask evaluation comes with the multi-device slice of the port"
-        )
     expr = parse_query(query)
     thr = normalize_thresholds(thresholds or {})
     positive = (
         extract_positive_tag_terms(query) if order_by == "relevance" else []
     )
-    # mask evaluation on the device, then ONE copy of the packed words
-    words = _mask_words(epoch, _slot_tables_np(epoch, expr, thr))
-    mask = _unpack_mask(words.cpu().numpy(), epoch.num_files)
+    mask = None
+    if mesh is not None and int(mesh.shape.get("data", 1)) > 1:
+        # multi-device: file-row-sharded mask evaluation (query/sharded);
+        # relevance + ordering below are shared host code, so identity with
+        # the single-device path is structural, not re-proved per feature
+        from kobato_eyes_tpu_torch.query.sharded import sharded_mask_words
+
+        # memoized unshardable verdict: a persistently unshardable
+        # (epoch, mesh) pair must not re-attempt sharding and re-warn on
+        # every query of a hot serving path. Keyed by epoch identity (weak)
+        # holding the mesh ids ruled out for it; a recycled mesh id can at
+        # worst serve single-device, never mis-answer.
+        ruled_out = _UNSHARDABLE_VERDICTS.setdefault(epoch, set())
+        if id(mesh) not in ruled_out:
+            try:
+                mask = _unpack_mask(
+                    sharded_mask_words(epoch, mesh, query, expr, thr),
+                    epoch.num_files,
+                )
+            except ValueError as exc:
+                # e.g. a data axis that cannot divide the padded file rows:
+                # serve the query on the epoch's device rather than failing
+                logger.warning(
+                    "mesh cannot shard this epoch (%s); single-device "
+                    "(verdict cached for this epoch+mesh)", exc,
+                )
+                ruled_out.add(id(mesh))
+    if mask is None:
+        # mask evaluation on the device, then ONE copy of the packed words
+        words = _mask_words(epoch, _slot_tables_np(epoch, expr, thr))
+        mask = _unpack_mask(words.cpu().numpy(), epoch.num_files)
     return _rank_and_page(epoch, mask, positive, thr, order_by, limit, offset)
 
 

@@ -253,7 +253,12 @@ def test_default_device_without_gpu_raises(monkeypatch, corpus):
                   lambda: tivf.kmeans(vecs, 4), lambda: tauto.build_auto_index(vecs, hnsw_max=10)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
-    for build in (lambda: tflat.FlatIndex(vecs, mesh=object(), **CPU),
-                  lambda: tivf.IvfFlatIndex(vecs, mesh=object(), **CPU)):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+    # a mesh over the visible cards needs a card too; one over CPU entries builds
+    from kobato_eyes_tpu_torch.parallel.mesh import make_mesh
+
+    for build in (lambda: tflat.FlatIndex(vecs, mesh=make_mesh()),
+                  lambda: tivf.IvfFlatIndex(vecs, mesh=make_mesh())):
+        with pytest.raises(RuntimeError, match="CUDA"):
             build()
+    cpu_mesh = make_mesh(devices=["cpu"] * 2)
+    assert len(tflat.FlatIndex(vecs, mesh=cpu_mesh)) == len(tivf.IvfFlatIndex(vecs, n_clusters=4, mesh=cpu_mesh))

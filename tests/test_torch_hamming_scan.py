@@ -182,8 +182,18 @@ def test_both_packages_load_their_own_native_scan(native_built, monkeypatch):
 
 
 def test_mesh_and_probe_wait_for_their_slices(monkeypatch):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tham.BandedHammingScanner(mesh=object(), device="cpu")
+    """Both slices landed: a mesh shards the scan (same edges as the host
+    scan), and ``probe`` routes by the measured crossover."""
+    from kobato_eyes_tpu_torch.parallel.mesh import make_mesh
+
+    ph = np.random.default_rng(4).integers(0, 1 << 63, size=600).astype(np.uint64)
+    ph[300:400] = ph[:100] ^ np.uint64(3)
+    sharded = tham.BandedHammingScanner(mesh=make_mesh(devices=["cpu"] * 2))
+    assert sharded.device == torch.device("cpu")
+    got = sharded.scan(ph, hamming_threshold=8)
+    want = tham.host_window_scan(ph, band_bits=16, band_count=4, hamming_threshold=8)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(tham, "_CROSSOVER_PROBE", {"derived_host_scan_max": 5555})
     monkeypatch.setenv("KET_DUP_HOST_SCAN_MAX", "probe")
-    with pytest.raises(NotImplementedError, match="probe"):
-        tham.BandedHammingScanner(device="cpu")
+    assert tham.BandedHammingScanner(device="cpu").host_scan_max == 5555

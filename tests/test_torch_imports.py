@@ -26,8 +26,8 @@ JAXPKG = ROOT / "kobato_eyes_tpu"
 FORBIDDEN_ROOTS = {"kobato_eyes_tpu", "jax", "jaxlib", "flax", "optax", "orbax"}
 
 # modules the jax-blocked import must have reached, the SwinV2, dup,
-# query-engine, ANN, checkpoint / upkeep and server / training / refine
-# slices' among them
+# query-engine, ANN, checkpoint / upkeep, server / training / refine and
+# multi-device slices' among them
 REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.ops.attention",
     "kobato_eyes_tpu_torch.ops.window_attention",
@@ -72,6 +72,13 @@ REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.services.server",
     "kobato_eyes_tpu_torch.dup.refine",
     "kobato_eyes_tpu_torch.dup.cluster",
+    "kobato_eyes_tpu_torch.ops.xla_math",
+    "kobato_eyes_tpu_torch.parallel.mesh",
+    "kobato_eyes_tpu_torch.parallel.distributed",
+    "kobato_eyes_tpu_torch.parallel.sharded_scan",
+    "kobato_eyes_tpu_torch.models.mesh_forward",
+    "kobato_eyes_tpu_torch.query.sharded",
+    "kobato_eyes_tpu_torch.utils.profiling",
 ]
 
 COPIED = [
@@ -111,6 +118,7 @@ LAYERS: dict[str, int] = {
     "native": 0,
     "device": 1,
     "ops": 1,
+    "parallel": 1,
     "db": 2,
     "models": 2,
     "sig": 2,

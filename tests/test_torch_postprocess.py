@@ -36,21 +36,19 @@ def test_probs_from_logits_already_probs_branch_is_exact():
 
 def test_probs_from_logits_sigmoid_branch():
     """The batch-global test: one value outside [0, 1] sends the whole batch
-    through the sigmoid. torch's sigmoid and XLA's CPU logistic round
-    apart by up to 2 ulp on about 0.4% of entries (a parity fault logged in
-    ROADMAP.md), so the values are held to 2 ulp; which branch ran is exact."""
+    through the sigmoid, which rounds as XLA's does: bit for bit."""
     rng = np.random.default_rng(1)
     x = rng.uniform(0, 1, size=(4, 257)).astype(np.float32)
     x[3, 17] = 1.5  # one logit outside [0, 1]
     got = tpost.probs_from_logits(torch.from_numpy(x)).numpy()
     want = np.asarray(jpost.probs_from_logits(jnp.asarray(x)))
-    np.testing.assert_array_max_ulp(got, want, maxulp=2)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     assert (got[0] != x[0]).any()  # sigmoid applied to every row
 
     logits = (rng.normal(size=(8, 1024)) * 4).astype(np.float32)
     got = tpost.probs_from_logits(torch.from_numpy(logits)).numpy()
     want = np.asarray(jpost.probs_from_logits(jnp.asarray(logits)))
-    np.testing.assert_array_max_ulp(got, want, maxulp=2)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 def _plain(results) -> list[list[tuple[str, float, int]]]:

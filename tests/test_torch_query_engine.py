@@ -433,9 +433,15 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(catalog):
 
 
 def test_mesh_waits_for_the_multi_device_slice(catalog):
+    """The multi-device slice landed: a mesh of CPU entries shards the mask
+    and gives the single-device results."""
+    from kobato_eyes_tpu_torch.parallel.mesh import make_mesh
+
     _, _, _, tepoch = catalog
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        teng.search_epoch(tepoch, "1girl", mesh=object())
+    mesh = make_mesh(devices=["cpu"] * 2)
+    assert [r.file_id for r in teng.search_epoch(tepoch, "1girl", mesh=mesh)] == [
+        r.file_id for r in teng.search_epoch(tepoch, "1girl")
+    ]
     with pytest.raises(ValueError, match="order_by"):
         teng.search_epoch(tepoch, "1girl", order_by="size")
     with pytest.raises(ValueError, match="order_by"):

@@ -169,16 +169,25 @@ def test_default_device_without_gpu_raises(monkeypatch):
 @pytest.mark.parametrize(
     "kw,error,match",
     [({"checkpoint_path": "ckpt"}, ValueError, "import-weights"),
-     ({"mesh": object()}, NotImplementedError, "multi-device"),
+     ({"mesh": ["cpu"] * 2}, None, None),
      ({"bf16_params": True}, None, None)],
     ids=["checkpoint", "mesh", "bf16_params"],
 )
 def test_later_slices_raise(kw, error, match):
-    """The mesh still waits for the multi-device slice. Checkpoints and bf16
-    parameters are ported: a path that is no checkpoint directory names the
-    converter, and bf16 parameters build."""
+    """Every later slice is ported: a path that is no checkpoint directory
+    names the converter, bf16 parameters build, and a mesh (of two CPU
+    entries) places the forward over its data rows."""
+    if "mesh" in kw:
+        from kobato_eyes_tpu_torch.parallel.mesh import make_mesh
+
+        kw = {"mesh": make_mesh(devices=kw["mesh"])}
     build = lambda: ttagger.WD14Tagger(labels=tlabels.synthetic_labels(8), device="cpu",  # noqa: E731
                                        vit=tvit.vit_config("tiny", image_size=32, num_classes=8), **kw)
+    if "mesh" in kw:
+        tagger = build()
+        assert len(tagger._mesh_forward.rows) == 2 and tagger._model is None
+        assert len(tagger.infer_batch([np.zeros((32, 32, 3), np.uint8)] * 3)) == 3
+        return
     if error is None:
         assert {p.dtype for p in build()._model.parameters()} == {torch.bfloat16}
         return
