@@ -62,13 +62,14 @@ batch 32, random seeded weights):
   ``dup --audit``, ``/similar`` against ``find_similar``, ``/delta``,
   ``/reload``, ``/trash``, ``/file``, ``/thumb``;
 * the sigmoid: the XLA-rounded pass of ``probs_from_logits`` against its
-  plain version on every f32 input (2^32) and at the tagger's (32, 8192)
-  logits, timed beside ``torch.sigmoid``;
+  plain version on every f32 input (2^32), at the tagger's (32, 8192)
+  logits and at (1024, 8192), timed in turns with ``torch.sigmoid``;
 * multi-device, on a mesh of four entries (the cards when there are
   several, else ``cuda:0`` four times): the ViT-B/448 tagger at data=4 and
-  at data=2, model=2, the sharded dup scan at 70k, the sharded query at
+  at data=2, model=2, the ViT-B/448 train step at data=2, model=2 (3
+  steps at batch 16), the sharded dup scan at 70k, the sharded query at
   20 000 files, flat and IVF search at 100k x 512, each against the
-  single-device path.
+  single-device path; then ``dryrun_multichip`` over the four entries.
 
 Kernels 3 and 5 run shorter than the host takes to enqueue a call, so their
 times are taken through CUDA graphs. Each kernel's launch count is set to 0
@@ -79,8 +80,9 @@ upkeep steps' and the fine-tuned index run's kernel-1 launches and the
 upkeep steps' window launches are added to those kernels'; the GELU count
 sums the ViT and SwinV2 index runs, the training and the fine-tuned index
 run; kernel 5's adds the server's ``/dup?audit=1``; the multi-device
-tagger forwards add to kernel 1's and the GELU pass's; the sigmoid's sums
-the ViT and SwinV2 index runs and the multi-device forwards. It
+tagger forwards add to kernel 1's and the GELU pass's, the sharded train
+steps and the dry run to both GELU passes'; the sigmoid's sums the ViT and
+SwinV2 index runs, the multi-device forwards and the dry run. It
 checks each tagger's fast forward against its exact forward, and prints one JSON line of kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. Any failed phase exits
 non-zero before the last line. Without a CUDA device, or without the
@@ -1011,41 +1013,45 @@ def gelu_phase() -> tuple[dict, dict]:
 SIGMOID_LOGITS = (BATCH, N_LABELS)  # the tagger's logits a batch
 SIGMOID_SWEEP = 1 << 32  # every f32 bit pattern
 SIGMOID_CHUNK = 1 << 27
+SIGMOID_BIG = (1024, N_LABELS)  # 67 MB moved: past the launch, past the 50 MB L2
+SIGMOID_READINGS = 5
 
 
 def sigmoid_phase() -> dict:
     """The XLA-rounded sigmoid pass (``ops/xla_math.py``) against its plain
     version on every f32 input (2^32 bit patterns, in chunks), and its exp
-    on every binade; then at the tagger's (32, 8192) logits, 0 elements
-    apart, timed through a CUDA graph beside ``torch.sigmoid`` and the byte
-    bound."""
+    on every binade; then at the tagger's (32, 8192) logits and at (1024,
+    8192), 0 elements apart, read through CUDA graphs in turns with
+    ``torch.sigmoid`` (five readings each), beside the byte bound."""
     import numpy as np
     import torch
 
     from kobato_eyes_tpu_torch.ops import xla_math as xm
 
     dev = torch.device(DEVICE)
-    apart = 0
+    apart = {"vec": 0, "scalar": 0}
     t0 = time.perf_counter()
     for start in range(0, SIGMOID_SWEEP, SIGMOID_CHUNK):
         bits = torch.arange(start, min(start + SIGMOID_CHUNK, SIGMOID_SWEEP), dtype=torch.int64, device=dev)
         x = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32).view(torch.float32)
-        got, want = xm.xla_sigmoid_f32(x), xm.sigmoid_plain(x)
-        apart += int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        del bits, x, got, want
+        want = xm.sigmoid_plain(x).view(torch.int32)
+        for variant in ("vec", "scalar"):
+            apart[variant] += int((xm.xla_sigmoid_f32(x, variant=variant).view(torch.int32) != want).sum())
+        del bits, x, want
     synchronize()
     sweep_s = time.perf_counter() - t0
-    print(f"xla sigmoid: every f32 input ({SIGMOID_SWEEP} bit patterns) against the plain version: "
-          f"{apart} apart ({sweep_s:.1f} s)")
-    check(apart == 0, f"xla sigmoid: {apart} of {SIGMOID_SWEEP} inputs differ from the plain version")
+    print(f"xla sigmoid: every f32 input ({SIGMOID_SWEEP} bit patterns) against the plain version, through the "
+          f"vec and the scalar body: {apart['vec']} / {apart['scalar']} apart ({sweep_s:.1f} s)")
+    check(apart == {"vec": 0, "scalar": 0}, f"xla sigmoid: inputs differ from the plain version: {apart}")
 
     rng = np.random.default_rng(21)
     mant = np.concatenate([np.array([0, 1, (1 << 22), (1 << 23) - 1], np.uint32),
                            rng.integers(0, 1 << 23, size=4096).astype(np.uint32)])
     pats = [(np.uint32(s << 31) | np.uint32(e << 23) | mant) for s in (0, 1) for e in range(256)]
     x = torch.from_numpy(np.concatenate(pats).view(np.float32)).to(dev)
-    exp_apart = int((xm.xla_exp_f32(x).view(torch.int32) != xm.exp_plain(x).view(torch.int32)).sum())
-    print(f"xla exp: {x.numel()} inputs over every f32 binade of both signs: {exp_apart} apart")
+    exp_apart = sum(int((xm.xla_exp_f32(x, variant=v).view(torch.int32) != xm.exp_plain(x).view(torch.int32)).sum())
+                    for v in ("vec", "scalar"))
+    print(f"xla exp: {x.numel()} inputs over every f32 binade of both signs, both bodies: {exp_apart} apart")
     check(exp_apart == 0, f"xla exp: {exp_apart} inputs differ from the plain version")
 
     sets = [torch.from_numpy((np.random.default_rng(22 + i).normal(size=SIGMOID_LOGITS) * 4).astype(np.float32)).to(dev)
@@ -1054,17 +1060,38 @@ def sigmoid_phase() -> dict:
                 for t in sets)
     err = max(float((xm.xla_sigmoid_f32(t) - xm.sigmoid_plain(t)).abs().max()) for t in sets)
     check(apart == 0, f"xla sigmoid at {SIGMOID_LOGITS}: {apart} elements apart")
-    ms = cuda_graph_ms([lambda t=sets[i % 4]: xm.xla_sigmoid_f32(t) for i in range(64)])
-    lib_ms = cuda_graph_ms([lambda t=sets[i % 4]: torch.sigmoid(t) for i in range(64)])
     plain_ms = cuda_ms(lambda: xm.sigmoid_plain(sets[0]), iters=20)
-    n = sets[0].numel()
-    bytes_moved = 2 * n * 4
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = 40.0 * n / F32_FLOPS_PER_S * 1e3  # ~40 f32 operations an element (exp, add, divide, checks)
-    print(f"xla sigmoid {SIGMOID_LOGITS}: 0 elements apart; kernel {ms:.4f} ms through a CUDA graph "
-          f"({ms / max(t_bytes, t_ops):.2f}x the bound), torch.sigmoid {lib_ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"bound {max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}: "
-          f"{bytes_moved / 1e6:.2f} MB)")
+    big = [torch.from_numpy((np.random.default_rng(26 + i).normal(size=SIGMOID_BIG) * 4).astype(np.float32)).to(dev)
+           for i in range(2)]
+    check(torch.equal(xm.xla_sigmoid_f32(big[0]).view(torch.int32), xm.sigmoid_plain(big[0]).view(torch.int32)),
+          f"xla sigmoid at {SIGMOID_BIG}: elements apart")
+    readings = {}
+    for shape, fns_of in ((SIGMOID_LOGITS, lambda f: [lambda t=sets[i % 4]: f(t) for i in range(64)]),
+                          (SIGMOID_BIG, lambda f: [lambda t=big[i % 2]: f(t) for i in range(8)])):
+        # the kernel (the body its size picks), the other body and torch.sigmoid in turns, five times each
+        n = shape[0] * shape[1]
+        props = torch.cuda.get_device_properties(dev)
+        chosen = "scalar" if n <= props.multi_processor_count * props.max_threads_per_multi_processor else "vec"
+        other = {"vec": "scalar", "scalar": "vec"}[chosen]
+        kern, alt, lib = [], [], []
+        for _ in range(SIGMOID_READINGS):
+            kern.append(cuda_graph_ms(fns_of(xm.xla_sigmoid_f32), replays=20))
+            alt.append(cuda_graph_ms(fns_of(lambda t: xm.xla_sigmoid_f32(t, variant=other)), replays=20))
+            lib.append(cuda_graph_ms(fns_of(torch.sigmoid), replays=20))
+        t_bytes, t_ops = 2 * n * 4 / HBM_BYTES_PER_S * 1e3, 40.0 * n / F32_FLOPS_PER_S * 1e3  # ~40 f32 operations an element
+        bound = max(t_bytes, t_ops)
+        readings[shape] = (min(kern), min(lib), bound, "bytes" if t_bytes >= t_ops else "operations")
+        us = lambda ts: " ".join(f"{t * 1e3:.3f}" for t in ts)  # noqa: E731
+        print(f"xla sigmoid {shape} f32 through CUDA graphs, in turns (us): kernel ({chosen} body) {us(kern)}; "
+              f"{other} body {us(alt)}; torch.sigmoid {us(lib)}; least {min(kern) * 1e3:.3f} / {min(alt) * 1e3:.3f} / "
+              f"{min(lib) * 1e3:.3f}, the kernel {min(kern) / min(lib):.3f}x torch.sigmoid; bound {bound * 1e3:.3f} us "
+              f"({2 * n * 4 / 1e6:.2f} MB moved), the kernel at {bound / min(kern):.1%} of it")
+    ms, lib_ms, bound, bound_by = readings[SIGMOID_LOGITS]
+    rule = (all(k <= 1.05 * t for k, t, _, _ in readings.values())
+            and readings[SIGMOID_BIG][2] >= 0.5 * readings[SIGMOID_BIG][0])
+    print(f"xla sigmoid: within 5% of torch.sigmoid at both shapes and at >= 50% of its bound at {SIGMOID_BIG}: "
+          f"{'yes' if rule else 'no'}; plain {plain_ms:.4f} ms at {SIGMOID_LOGITS}")
+    del big
     return {
         "name": "xla_sigmoid",
         "route": "cuda",
@@ -1074,8 +1101,8 @@ def sigmoid_phase() -> dict:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound,
+        "bound_by": bound_by,
         "library_ms": lib_ms,
     }
 
@@ -3394,6 +3421,126 @@ def _md_tagger_phase(devices: list[str]) -> tuple[int, int, int]:
     return tuple(totals)
 
 
+MD_TRAIN_STEPS = 3
+
+
+def _md_train_phase(devices: list[str]) -> tuple[int, int]:
+    """The sharded train step (``make_train_step(..., mesh=)``): ViT-B/16 @
+    448, 8192 labels, ``train_phase``'s bf16 activations, from the trainer's
+    seed-0 weights, batch 16 at data 2 x model 2 on the four entries, 3 steps
+    on seeded images and multi-hot labels at 5%, beside the one-device step
+    from the same weights on the same batches. Each loss finite and within
+    1e-2 relative of one device's; after step 1 each tensor's gathered
+    gradient norm within 0.98-1.02 of one device's (a sum over the rows taken
+    for their mean reads 2) and max |dg| <= 3e-2 max |g|; after 3 steps max
+    |dw| <= 6 lr (an Adam step moves a weight by about lr). Then both steps'
+    ms (CUDA events, warm, mean of 5) and peak memory. Returns the sharded
+    steps' GELU forward and backward launches (rows x shards x 12 layers a
+    step each way)."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.models.preprocess import PreprocessSpec
+    from kobato_eyes_tpu_torch.models.train import TrainConfig, _init_model, make_train_step
+    from kobato_eyes_tpu_torch.models.vit import vit_config
+    from kobato_eyes_tpu_torch.ops import gelu
+    from kobato_eyes_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    vcfg = vit_config("base", image_size=TRAIN_SIZE, num_classes=N_LABELS)
+    spec = PreprocessSpec(mode="wd14", size=TRAIN_SIZE)
+    train_cfg = TrainConfig()
+    model = _init_model(vcfg)
+    mesh = make_mesh(data=2, model=2, devices=devices)
+    sharded, _ = make_train_step(vcfg, spec, train_cfg, model=model, mesh=mesh)  # placed copies of the weights
+    single, _ = make_train_step(vcfg, spec, train_cfg, model=model, device=DEVICE)
+    fwd = sharded.forward
+    check(fwd.split == (2, 2, 2), f"sharded train split {fwd.split}")
+    for r, row in enumerate(fwd.rows):
+        for m, shard in enumerate(row):
+            check(all(p.device == mesh.devices[r, m] for p in shard.parameters()),
+                  f"train shard ({r}, {m}) off its entry {mesh.devices[r, m]}")
+    rng = np.random.default_rng(71)
+    batches = [(torch.from_numpy(rng.integers(0, 256, size=(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                                             dtype=np.uint8)).to(DEVICE),
+                torch.from_numpy((rng.random((TRAIN_BATCH, N_LABELS)) < 0.05).astype(np.float32)).to(DEVICE))
+               for _ in range(MD_TRAIN_STEPS)]
+
+    gelu.launches = gelu.backward_launches = 0
+    losses, grads = [], None
+    for x, y in batches:
+        losses.append(float(sharded(x, y)))
+        if grads is None:
+            grads = {k: v.float().clone() for k, v in sharded.gradients().items()}
+    counts = (gelu.launches, gelu.backward_launches)
+    expect = MD_TRAIN_STEPS * 2 * 2 * vcfg.depth
+    check(counts == (expect, expect), f"sharded train: gelu launches (forward, backward) {counts} != {expect}")
+    one_losses, one_grads = [], None
+    for x, y in batches:
+        one_losses.append(float(single(x, y)))
+        if one_grads is None:
+            one_grads = {k: p.grad.float().clone() for k, p in single.model.named_parameters()}
+
+    check(all(np.isfinite(losses)), f"sharded train: losses {losses}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    ratios, dg = {}, {}
+    for name, want in one_grads.items():
+        got = grads[name]
+        ratios[name] = float(got.norm() / want.norm())
+        dg[name] = float((got - want).abs().max() / want.abs().max())
+    state, one_state = sharded.state_dict(), single.model.state_dict()
+    dw = max(float((state[k].float() - v.float()).abs().max()) for k, v in one_state.items())
+    worst_ratio = max(ratios, key=lambda k: abs(ratios[k] - 1.0))
+    worst_dg = max(dg, key=dg.get)
+    print(f"multidevice train vit-b448 batch {TRAIN_BATCH} data=2 model=2 on {devices}: losses "
+          f"{' '.join(f'{v:.6f}' for v in losses)} vs one device {' '.join(f'{v:.6f}' for v in one_losses)} "
+          f"(max rel {rel:.3e}, tol 1e-2); step-1 gradient norm ratio {min(ratios.values()):.5f}.."
+          f"{max(ratios.values()):.5f} (worst {worst_ratio}), max |dg| / max |g| {dg[worst_dg]:.3e} ({worst_dg}, "
+          f"tol 3e-2); after {MD_TRAIN_STEPS} steps max |dw| {dw:.3e} (tol {6 * train_cfg.learning_rate:.1e}); "
+          f"gelu launches {counts[0]}, gelu backward {counts[1]}")
+    check(rel <= 1e-2, f"sharded train: losses {rel} apart from one device (relative)")
+    check(all(0.98 <= v <= 1.02 for v in ratios.values()), f"sharded train: gradient norm ratio {ratios[worst_ratio]} "
+          f"({worst_ratio})")
+    check(dg[worst_dg] <= 3e-2, f"sharded train: gradient {worst_dg} {dg[worst_dg]} apart")
+    check(dw <= 6 * train_cfg.learning_rate, f"sharded train: weights {dw} apart after {MD_TRAIN_STEPS} steps")
+
+    x, y = batches[0]
+    torch.cuda.reset_peak_memory_stats()
+    sharded_ms = cuda_ms(lambda: sharded(x, y), iters=5, warmup=2)
+    sharded_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    single_ms = cuda_ms(lambda: single(x, y), iters=5, warmup=2)
+    single_peak = torch.cuda.max_memory_allocated()
+    print(f"multidevice train step vit-b448 batch {TRAIN_BATCH}: data=2 model=2 {sharded_ms:.2f} ms, one device "
+          f"{single_ms:.2f} ms (CUDA events, warm, mean of 5); max_memory_allocated {sharded_peak / 2**30:.2f} / "
+          f"{single_peak / 2**30:.2f} GiB (both steps resident); phase {time.perf_counter() - t0:.1f} s")
+    del sharded, single, fwd, batches, grads, one_grads, state, one_state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _md_dryrun_phase(devices: list[str]) -> tuple[int, int, int, int]:
+    """``parallel.dryrun.dryrun_multichip`` over the four entries: its five
+    checks (train, scan, query, ann, infer) at the JAX dry run's shapes.
+    Returns its kernel-1, GELU, sigmoid and GELU backward launches: the
+    train step's 2 rows x 2 shards x 2 layers each way; the infer check's
+    exact forwards (the tiny preset's 48-wide heads take no kernel 1), one
+    on one device (4 layers) and two sharded (2 x 2 x 4), a sigmoid each."""
+    from kobato_eyes_tpu_torch.ops import attention, gelu, xla_math
+    from kobato_eyes_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    attention.launches = gelu.launches = xla_math.launches = gelu.backward_launches = 0
+    loss = dryrun_multichip(MD_ENTRIES, devices=devices)
+    synchronize()
+    counts = (attention.launches, gelu.launches, xla_math.launches, gelu.backward_launches)
+    print(f"multidevice dry run over {devices}: train loss {loss:.6f}; launches (attention, gelu, sigmoid, "
+          f"gelu backward) {counts}; {time.perf_counter() - t0:.1f} s")
+    expect = (0, 2 * 2 * 2 + 4 + 2 * (2 * 2 * 4), 3, 2 * 2 * 2)
+    check(counts == expect, f"dry run launches {counts} != {expect}")
+    return counts
+
+
 def _md_dup_phase(mesh) -> None:
     """The 70k dup population through the mesh-sharded scan against the
     single-device engine's host and device routes: clusters identical."""
@@ -3521,22 +3668,25 @@ def _md_ann_phase(mesh) -> None:
           f"{recall:.3f} at nprobe {IVF_NPROBE}, {recall_all:.3f} with every list")
 
 
-def multidevice_phase(work: Path) -> tuple[int, int, int]:
+def multidevice_phase(work: Path) -> tuple[int, int, int, int]:
     """The sharded paths on a four-entry mesh (``md_devices``) against the
-    single-device paths: the tagger, the dup scan, the query engine, flat
-    and IVF search. Returns the tagger forwards' kernel-1, GELU and sigmoid
-    launches."""
+    single-device paths: the tagger, the train step, the dup scan, the query
+    engine, flat and IVF search; then the dry run. Returns the kernel-1,
+    GELU, sigmoid and GELU backward launches of the tagger forwards, the
+    train steps and the dry run."""
     from kobato_eyes_tpu_torch.parallel.mesh import make_mesh
 
     devices = md_devices()
     t0 = time.perf_counter()
-    launches = _md_tagger_phase(devices)
+    attn, act, sigmoid = _md_tagger_phase(devices)
+    train_act, train_backward = _md_train_phase(devices)
     mesh = make_mesh(data=MD_ENTRIES, model=1, devices=devices)
     _md_dup_phase(mesh)
     _md_query_phase(work, mesh)
     _md_ann_phase(mesh)
+    dry = _md_dryrun_phase(devices)
     print(f"multidevice phase: {time.perf_counter() - t0:.1f} s on {devices}")
-    return launches
+    return attn + dry[0], act + train_act + dry[1], sigmoid + dry[2], train_backward + dry[3]
 
 
 def card_line() -> str:
@@ -3597,9 +3747,10 @@ def main() -> int:
         attn_separate["launches"] = sep_vit + sep_swin + sep_ann + sep_up
         act["launches"] = gelu_vit + gelu_swin + gelu_train
         hamming["launches"] += serve_phase(work)
-        md_attn, md_gelu, md_sigmoid = multidevice_phase(work)
+        md_attn, md_gelu, md_sigmoid, md_gelu_backward = multidevice_phase(work)
         attn["launches"] += md_attn
         act["launches"] += md_gelu
+        act_backward["launches"] += md_gelu_backward
         sigmoid["launches"] = sig_vit + sig_swin + md_sigmoid
     finally:
         shutil.rmtree(work, ignore_errors=True)

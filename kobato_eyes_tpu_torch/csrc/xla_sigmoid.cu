@@ -15,14 +15,20 @@
 // -88.3762626 and wherever y * 2^m would be subnormal; the sigmoid is 0
 // wherever 1 / (1 + e) would be. A NaN comes back quieted with its payload
 // (the sigmoid's negate flips its sign). Every step here is __fmaf_rn,
-// __fmul_rn, __fadd_rn or __fdiv_rn, so that nvcc contracts nothing;
-// ops/xla_math.py holds the plain version, which equals jitted jnp.exp and
-// jax.nn.sigmoid on every f32 binade (tests/test_torch_sigmoid.py).
+// __fmul_rn, __fadd_rn or __frcp_rn (1 / d rounded once, as the divide
+// rounds it), so that nvcc contracts nothing; ops/xla_math.py holds the
+// plain version, which equals jitted jnp.exp and jax.nn.sigmoid on every
+// f32 binade (tests/test_torch_sigmoid.py).
 //
 // Bound on the card: bytes. x is read once and the output written once (the
 // tagger's (32, 8192) f32 logits: 1 MB each way, 0.63 us at 3.35 TB/s).
-// Four values a thread through 16-byte loads when both pointers allow it,
-// one a thread otherwise.
+// Each value is a chain of ~40 dependent operations, so at that size the
+// chains' latency, not the bytes, sets the time: while one value a thread
+// fits in one wave of resident threads, the pass runs one value a thread
+// (the "scalar" body: more chains in flight); beyond it, four values a
+// thread through 16-byte loads when both pointers allow it (the "vec"
+// body), where the bytes set the time. chip_smoke.py times both bodies at
+// both sizes beside torch.sigmoid.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,8 +42,8 @@ __device__ __forceinline__ float quiet_nan(float x, unsigned flip) {
   return __uint_as_float((__float_as_uint(x) | 0x00400000u) ^ flip);
 }
 
-__device__ __forceinline__ float xla_exp(float x) {
-  if (isnan(x)) return quiet_nan(x, 0u);
+// exp of a value that is not NaN
+__device__ __forceinline__ float xla_exp_number(float x) {
   if (x < -88.3762626647949f) return 0.0f;
   const float m = fminf(floorf(__fmaf_rn(x, 1.44269504088896341f, 0.5f)), 127.0f);
   if (m < -126.0f) return 0.0f;  // y * 2^m would be subnormal: flushed
@@ -54,9 +60,13 @@ __device__ __forceinline__ float xla_exp(float x) {
   return out < kFltMin ? 0.0f : out;
 }
 
+__device__ __forceinline__ float xla_exp(float x) {
+  return isnan(x) ? quiet_nan(x, 0u) : xla_exp_number(x);
+}
+
 __device__ __forceinline__ float xla_sigmoid(float x) {
   if (isnan(x)) return quiet_nan(x, 0x80000000u);
-  const float s = __fdiv_rn(1.0f, __fadd_rn(xla_exp(-x), 1.0f));
+  const float s = __frcp_rn(__fadd_rn(xla_exp_number(-x), 1.0f));
   return s < kFltMin ? 0.0f : s;
 }
 
@@ -85,10 +95,21 @@ __global__ void __launch_bounds__(kThreads) scalar_kernel(const float* __restric
   if (i < n) y[i] = apply<OP>(x[i]);
 }
 
+// threads resident on the current device at full occupancy: one wave
+long long one_wave() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  return static_cast<long long>(sms) * per_sm;
+}
+
+// variant 0: by size; 1: "vec" (four a thread where aligned); 2: "scalar"
 template <int OP>
-int launch(const float* x, float* y, long long n, cudaStream_t s) {
+int launch(const float* x, float* y, long long n, int variant, cudaStream_t s) {
   long long start = 0;
-  if ((uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0) {
+  const bool vec = variant == 1 || (variant == 0 && n > one_wave());
+  if (vec && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0) {
     const long long n4 = n / 4;
     if (n4 > 0) {
       vec_kernel<OP><<<(unsigned)((n4 + kThreads - 1) / kThreads), kThreads, 0, s>>>(
@@ -106,13 +127,14 @@ int launch(const float* x, float* y, long long n, cudaStream_t s) {
 
 }  // namespace
 
-// y = exp(x) (op 0) or sigmoid(x) (op 1), n f32 values.
-extern "C" int xla_math_launch(const void* x, void* y, long long n, int op, void* stream) {
+// y = exp(x) (op 0) or sigmoid(x) (op 1), n f32 values; variant as launch's.
+extern "C" int xla_math_launch(const void* x, void* y, long long n, int op, int variant, void* stream) {
   if (n <= 0) return 0;
+  if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   float* yf = static_cast<float*>(y);
-  if (op == 0) return launch<0>(xf, yf, n, s);
-  if (op == 1) return launch<1>(xf, yf, n, s);
+  if (op == 0) return launch<0>(xf, yf, n, variant, s);
+  if (op == 1) return launch<1>(xf, yf, n, variant, s);
   return (int)cudaErrorInvalidValue;
 }

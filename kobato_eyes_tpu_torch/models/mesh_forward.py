@@ -22,6 +22,10 @@ lets GSPMD partition one jitted forward. Here the partition is written out:
   class shards' logits are concatenated. A part whose rule does not divide
   the model axis (``mesh.shard_params``) stays whole on the first entry.
 
+The same forward trains (``models/train.py``): the copies between entries
+carry the gradients back to each shard. The replicated tensors of entries
+other than a row's first are placed but never read (:meth:`MeshForward.reads`).
+
 SwinV2 under a mesh is data parallel only: the ViT rules name no SwinV2
 tensor the port could split cleanly, so each row's first entry holds a
 whole replica.
@@ -35,14 +39,19 @@ import torch
 from torch import nn
 
 from kobato_eyes_tpu_torch.models.vit import ViT
-from kobato_eyes_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, place_params, shard_params
+from kobato_eyes_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    Mesh,
+    Sharding,
+    gather_params,
+    place_params,
+    shard_params,
+)
 
 
-def _split(model: ViT, mesh: Mesh) -> tuple[int, int, int]:
+def _split(cfg, shardings: dict[str, Sharding], mesh: Mesh) -> tuple[int, int, int]:
     """Into how many model shards the heads, MLP width and classes go (1
     where their rule replicates)."""
-    cfg = model.cfg
-    shardings = shard_params(model.state_dict(), mesh, num_heads=cfg.num_heads)
     n = mesh.shape[MODEL_AXIS]
 
     def parts(names: tuple[str, ...]) -> int:
@@ -71,30 +80,56 @@ class MeshForward:
     def __init__(self, model: nn.Module, mesh: Mesh) -> None:
         self.mesh = mesh
         grid = mesh.local_devices
-        self.split = _split(model, mesh) if isinstance(model, ViT) else (1, 1, 1)
+        state = model.state_dict()
+        self.shapes = {name: tuple(t.shape) for name, t in state.items()}
+        self.split, self._sharded = (1, 1, 1), set()
+        if isinstance(model, ViT):
+            self.num_heads = model.cfg.num_heads
+            shardings = shard_params(state, mesh, num_heads=self.num_heads)
+            self.split = _split(model.cfg, shardings, mesh)
+            self._sharded = {name for name, s in shardings.items() if not s.replicated}
         if self.split == (1, 1, 1):
             # data parallel: a whole replica on each row's first entry
             self.rows = [[copy.deepcopy(model).to(grid[r, 0])] for r in range(grid.shape[0])]
             return
-        placed = place_params(model.state_dict(), mesh, num_heads=model.cfg.num_heads)
+        placed = place_params(state, mesh, num_heads=self.num_heads)
         self.rows = []
         for r, row in enumerate(placed):
             shards = []
-            for m, state in enumerate(row):
+            for m, entry in enumerate(row):
                 shard = ViT(model.cfg, split=self.split)
-                shard.load_state_dict(state, strict=True)
+                shard.load_state_dict(entry, strict=True)
                 shards.append(shard.to(grid[r, m]).eval().requires_grad_(False))
             self.rows.append(shards)
+
+    def reads(self, m: int) -> set[str]:
+        """The parameter names that the forward reads on model entry ``m``:
+        all on a row's first entry, the sharded ones elsewhere."""
+        names = set(self.shapes)
+        return names if m == 0 else names & self._sharded
+
+    def gather(self, rows: list[list[dict[str, torch.Tensor]]]) -> dict[str, torch.Tensor]:
+        """Whole tensors, on the mesh's first entry, from per-entry dicts laid
+        out as :attr:`rows` (each shard's parameters, or their gradients)."""
+        if self.split == (1, 1, 1):
+            return dict(rows[0][0])
+        return gather_params(rows, self.mesh, num_heads=self.num_heads, shapes=self.shapes)
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The whole model's state (timm names), gathered from the shards."""
+        return self.gather([[shard.state_dict() for shard in row] for row in self.rows])
 
     def __call__(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
         """Per data row: (b, S, S, 3) normalised images on the row's first
         entry -> (b, C) f32 logits there."""
-        grid = self.mesh.local_devices
-        return [self._row(shards, list(grid[r]), x) for r, (shards, x) in enumerate(zip(self.rows, blocks))]
+        return [self.row(r, x) for r, x in enumerate(blocks)]
 
-    def _row(self, shards: list[nn.Module], devs: list[torch.device], x: torch.Tensor) -> torch.Tensor:
+    def row(self, r: int, x: torch.Tensor) -> torch.Tensor:
+        """Data row ``r``'s forward of its block ``x``."""
+        shards = self.rows[r]
         if self.split == (1, 1, 1):
             return shards[0](x)
+        devs = list(self.mesh.local_devices[r])
         s0 = shards[0]
         dtype = s0.cfg.dtype
         split_attn, split_mlp, split_head = (n > 1 for n in self.split)

@@ -28,11 +28,14 @@ The plain version computes each FMA in f64 (the product of two f32 is exact
 there) and rounds the sum to f32 once, by rounding to odd in f64 first: an
 f64 sum rounded to nearest and then to f32 could round twice. The CUDA pass
 (``csrc/xla_sigmoid.cu``) uses ``__fmaf_rn``, ``__fmul_rn``, ``__fadd_rn``
-and ``__fdiv_rn`` (no fast math); it is bound by bytes (x read once, the
-output written once). A wrapper launches the kernel for a CUDA tensor and
-raises if the launch fails; it takes the plain version only for a CPU
-tensor. ``launches`` counts the sigmoid pass's launches, ``exp_launches``
-those of ``exp``.
+and ``__frcp_rn`` (no fast math); it is bound by bytes (x read once, the
+output written once) where it is long, by its chains' latency at a tagger
+batch's logits. It runs one value a thread (the ``"scalar"`` body) while
+that fits in one wave of the card's resident threads, four beyond (the
+``"vec"`` body, 16-byte loads). A wrapper launches the kernel for a CUDA
+tensor and raises if the launch fails; it takes the plain version only for
+a CPU tensor. ``launches`` counts the sigmoid pass's launches,
+``exp_launches`` those of ``exp``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ _count_lock = threading.Lock()
 
 _SOURCE = "xla_sigmoid.cu"
 _OPS = {"exp": 0, "sigmoid": 1}
+VARIANTS = {None: 0, "vec": 1, "scalar": 2}  # None: by size
 
 LOG2E = 1.44269504088896341
 LN2_HI = -0.693359375
@@ -124,44 +128,53 @@ def _library() -> ctypes.CDLL:
     lib = load(_SOURCE)
     if lib.xla_math_launch.argtypes is None:
         vp = ctypes.c_void_p
-        lib.xla_math_launch.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
+        lib.xla_math_launch.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
         lib.xla_math_launch.restype = ctypes.c_int
     return lib
 
 
-def _launch(x: torch.Tensor, op: str) -> torch.Tensor:
+def _check_variant(variant: str | None) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} is none of {sorted(v for v in VARIANTS if v)}")
+
+
+def _launch(x: torch.Tensor, op: str, variant: str | None) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise ValueError(f"xla {op} kernel takes float32, got {x.dtype}")
     xc = x.contiguous()
     out = torch.empty_like(xc)
     if xc.numel():
         stream = torch.cuda.current_stream(xc.device).cuda_stream
-        err = _library().xla_math_launch(xc.data_ptr(), out.data_ptr(), xc.numel(), _OPS[op], stream)
+        err = _library().xla_math_launch(xc.data_ptr(), out.data_ptr(), xc.numel(), _OPS[op], VARIANTS[variant],
+                                         stream)
         if err != 0:
             raise RuntimeError(f"xla {op} launch failed: cudaError_t {err}")
     return out
 
 
-def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
-    """XLA's f32 ``exp``: the CUDA pass for a CUDA tensor, the plain version
-    for a CPU tensor."""
+def xla_exp_f32(x: torch.Tensor, *, variant: str | None = None) -> torch.Tensor:
+    """XLA's f32 ``exp``: the CUDA pass for a CUDA tensor (``variant`` as
+    :func:`xla_sigmoid_f32`'s), the plain version for a CPU tensor."""
     global exp_launches
+    _check_variant(variant)
     if x.device.type == "cpu":
         return exp_plain(x)
-    out = _launch(x, "exp")
+    out = _launch(x, "exp", variant)
     if x.numel():
         with _count_lock:
             exp_launches += 1
     return out
 
 
-def xla_sigmoid_f32(x: torch.Tensor) -> torch.Tensor:
+def xla_sigmoid_f32(x: torch.Tensor, *, variant: str | None = None) -> torch.Tensor:
     """``jax.nn.sigmoid`` in f32 as XLA computes it: the CUDA pass for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    tensor, the plain version for a CPU tensor. ``variant`` (``"vec"``,
+    ``"scalar"``) runs that body whatever the size, to check or time it."""
     global launches
+    _check_variant(variant)
     if x.device.type == "cpu":
         return sigmoid_plain(x)
-    out = _launch(x, "sigmoid")
+    out = _launch(x, "sigmoid", variant)
     if x.numel():
         with _count_lock:
             launches += 1

@@ -150,6 +150,16 @@ class Sharding:
         view = tensor.unflatten(dim, (self.outer, self.units, -1))
         return view.narrow(dim + 1, index * per, per).flatten(dim, dim + 2).contiguous()
 
+    def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The whole tensor from the model entries' parts, in entry order, on
+        the first part's device: the inverse of :meth:`shard`."""
+        if self.replicated:
+            return parts[0]
+        dim = self.spec.index(MODEL_AXIS)
+        per = self.units // len(parts)
+        views = [p.to(parts[0].device).unflatten(dim, (self.outer, per, -1)) for p in parts]
+        return torch.cat(views, dim=dim + 1).flatten(dim, dim + 2)
+
 
 # name pattern -> (partitioned dim, outer groups, unit: "heads" or "rows"):
 # the ViT's big tensors in timm names (JAX: the flax paths of _VIT_RULES)
@@ -227,3 +237,29 @@ def place_params(
         [{name: t.to(grid[r, m]) for name, t in parts[m].items()} for m in range(model)]
         for r in range(grid.shape[0])
     ]
+
+
+def gather_params(
+    rows: Sequence[Sequence[Mapping[str, torch.Tensor]]],
+    mesh: Mesh,
+    *,
+    num_heads: int | None = None,
+    shapes: Mapping[str, Sequence[int]],
+) -> dict[str, torch.Tensor]:
+    """The whole state dict from per-entry ones laid out as :func:`place_params`
+    lays them (``rows[r][m]``), on entry (0, 0)'s device: a sharded tensor is
+    its model entries' parts of data row 0 joined along its :class:`Sharding`
+    (qkv rows back in timm's (3, heads, head_dim) order), a replicated one is
+    entry (0, 0)'s copy. ``shapes`` gives each whole tensor's shape, which
+    decides its :class:`Sharding` as in :func:`place_params`: a shard of a
+    split tensor and a tensor its rule left whole can have the same shape.
+    A name that a rule shards must be in every entry of row 0; a replicated
+    one only in entry (0, 0) (the gradients of a step: copies that no forward
+    reads have none)."""
+    model = mesh.shape[MODEL_AXIS]
+    row = rows[0]
+    out = {}
+    for name, shape in shapes.items():
+        sharding = _spec_for_path(name, tuple(shape), model, num_heads)
+        out[name] = sharding.gather([row[0][name]] if sharding.replicated else [e[name] for e in row])
+    return out

@@ -134,6 +134,20 @@ def test_cpu_tensor_takes_the_plain_version_without_counting():
     assert (xla_math.launches, xla_math.exp_launches) == before
 
 
+@pytest.mark.parametrize("variant", [None, "vec", "scalar"])
+def test_a_named_body_takes_the_plain_version_on_the_cpu(variant):
+    x = torch.linspace(-90, 90, 101)
+    assert torch.equal(xla_math.xla_sigmoid_f32(x, variant=variant), xla_math.sigmoid_plain(x))
+    assert torch.equal(xla_math.xla_exp_f32(x, variant=variant), xla_math.exp_plain(x))
+
+
+def test_an_unknown_body_raises():
+    with pytest.raises(ValueError, match="variant 'lut'"):
+        xla_math.xla_sigmoid_f32(torch.zeros(4), variant="lut")
+    with pytest.raises(ValueError, match="variant 'lut'"):
+        xla_math.xla_exp_f32(torch.zeros(4), variant="lut")
+
+
 def test_xla_rsqrt_is_none_of_the_portable_forms():
     """Why the window kernel's rsqrt fault stays open (ROADMAP §3): XLA's CPU
     f32 ``rsqrt`` equals none of ``1 / sqrt(x)``, ``sqrt(1 / x)`` or the
