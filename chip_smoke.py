@@ -57,6 +57,12 @@ batch 32, random seeded weights):
 * training: ``train`` through the CLI on the ViT run's catalog (ViT-B/16 @
   448, batch 16, one epoch), the checkpoint in ``TorchTagger`` and an
   ``index`` from it, the step's time and MFU;
+* flash attention (``attn_impl="flash"``): the forward, dK/dV and dQ
+  kernels against their plain versions at ViT-B/448 (bf16 and f32) and on
+  strided and misaligned views at D = 48 / 32, each timed beside SDPA's
+  forward or backward; the ViT-B/448 forward at batch 32 with the flash
+  path beside the einsum forward; 3 flash train steps at batch 16 beside
+  the einsum step and an f32 step's gradients;
 * serving: the port's server in this process on the 20 000-file, the dup
   and the ANN catalogs: ``/search`` against SQL, ``/dup?audit=1`` against
   ``dup --audit``, ``/similar`` against ``find_similar``, ``/delta``,
@@ -82,7 +88,9 @@ sums the ViT and SwinV2 index runs, the training and the fine-tuned index
 run; kernel 5's adds the server's ``/dup?audit=1``; the multi-device
 tagger forwards add to kernel 1's and the GELU pass's, the sharded train
 steps and the dry run to both GELU passes'; the sigmoid's sums the ViT and
-SwinV2 index runs, the multi-device forwards and the dry run. It
+SwinV2 index runs, the multi-device forwards and the dry run; the flash
+forward's the flash ViT forward and train steps, the flash backward
+kernels' the train steps. It
 checks each tagger's fast forward against its exact forward, and prints one JSON line of kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. Any failed phase exits
 non-zero before the last line. Without a CUDA device, or without the
@@ -94,6 +102,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -1008,6 +1017,284 @@ def gelu_phase() -> tuple[dict, dict]:
 
     return (entry("gelu", rows[(VIT_GELU, torch.bfloat16, True)], max(errs.values())),
             entry("gelu_backward", bwd_rows[(torch.bfloat16, False)], max(bwd_errs.values())))
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (attn_impl="flash"): the forward and its two backward kernels
+# ---------------------------------------------------------------------------
+
+FLASH_READINGS = 3  # readings of each kernel and of its library call, in turns
+
+
+def _flash_products(b: int, t: int, h: int, d: int, n: int) -> float:
+    """FLOPs of ``n`` (T x T x D) products over B x H heads."""
+    return 2.0 * n * t * t * d * b * h
+
+
+def flash_attention_phase() -> tuple[dict, dict, dict]:
+    """The flash forward, dK/dV and dQ kernels against their plain versions:
+    at ViT-B/448 (T 785, H 12, D 64) the forward at B = 32 and B = 1 and the
+    forward and backward at the train step's B = 16, in bf16 and f32; D = 48
+    and D = 32 at T = 37 and 129 from packed strided views of a larger
+    projection and from views one element off alignment (which these bodies
+    take: they read one element at a time). f32: ``o`` within 2e-5, ``m`` and
+    ``l`` within 1e-6 of the largest, each gradient within 1e-5 of its
+    largest. bf16: ``o`` and each gradient no further from the f64 plain
+    version than twice the bf16 plain version is, plus one bf16 ulp of the
+    largest value. Then each kernel's time through a CUDA graph, the least
+    of three readings taken in turns with SDPA's forward or its backward
+    through autograd, beside the bound and the plain version's time. Returns
+    the three kernels' entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from kobato_eyes_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain version in IEEE f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def ulp(x: float) -> float:  # one bf16 ulp of |x| (8 significant bits)
+        return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+    def held(name, got, plain, exact):
+        """bf16: max |kernel - f64| <= 2 max |bf16 plain - f64| + one ulp."""
+        k_err = float((got.double() - exact).abs().max())
+        p_err = float((plain.double() - exact).abs().max())
+        bar = 2 * p_err + ulp(float(exact.abs().max()))
+        print(f"flash {name}: max |kernel - f64| {k_err:.3e}, max |bf16 plain - f64| {p_err:.3e} (bar {bar:.3e})")
+        check(k_err <= bar, f"flash {name}: {k_err} > {bar}")
+        return k_err
+
+    def close(name, got, want, rel):
+        """f32: max |kernel - plain| <= rel * max |plain|."""
+        err = float((got - want).abs().max())
+        bar = rel * float(want.abs().max())
+        print(f"flash {name}: max |kernel - plain| {err:.3e} (bar {bar:.3e})")
+        check(err <= bar, f"flash {name}: {err} > {bar}")
+        return err
+
+    def hold(name, qkv, scale, backward):
+        """The kernels on ``qkv`` against the plain versions; returns the
+        forward's error and (with ``backward``) each gradient's."""
+        b, t, _, h, d = qkv.shape
+        q, k, v = qkv.unbind(dim=2)
+        o, m, l = fa.flash_forward(qkv, scale)
+        po, pm, pl = fa.flash_forward_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        variant = fa.kernel_variant(qkv.dtype, d)
+        tag = f"{name} {str(qkv.dtype).split('.')[-1]} (B {b}, T {t}, H {h}, D {d}) [{variant}]"
+        check(o.dtype == qkv.dtype and o.shape == (b, t, h, d) and m.shape == l.shape == (b, h, t),
+              f"flash {tag}: dtype/shape")
+        check(bool(torch.isfinite(o).all() & torch.isfinite(m).all() & torch.isfinite(l).all()),
+              f"flash {tag}: non-finite output")
+        close(f"{tag} m", m, pm, 1e-6)
+        close(f"{tag} l", l, pl, 1e-6)
+        bf16 = qkv.dtype == torch.bfloat16
+        if bf16:
+            q64, k64, v64 = (x.double() for x in (q, k, v))
+            eo, em, el = fa.flash_forward_plain(q64, k64, v64, scale)
+            errs = [held(f"{tag} o", o, po, eo)]
+        else:
+            errs = [float((o - po).abs().max())]
+            print(f"flash {tag} o: max |kernel - plain| {errs[0]:.3e} (tol 2e-5)")
+            check(errs[0] <= 2e-5, f"flash {tag} o: {errs[0]} > 2e-5")
+        if backward:
+            do = randn((b, t, h, d), qkv.dtype)
+            grad = fa.flash_backward(qkv, o, m, l, do, scale)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(grad).all()), f"flash {tag}: non-finite gradient")
+            if bf16:
+                plain = fa.flash_backward_plain(q, k, v, po, pm, pl, do, scale)
+                exact = fa.flash_backward_plain(q64, k64, v64, eo, em, el, do.double(), scale)
+                errs += [held(f"{tag} d{x}", grad[:, :, i], plain[i], exact[i]) for i, x in enumerate("qkv")]
+            else:
+                plain = fa.flash_backward_plain(q, k, v, o, m, l, do, scale)
+                errs += [close(f"{tag} d{x}", grad[:, :, i], plain[i], 1e-5) for i, x in enumerate("qkv")]
+        return errs
+
+    b, t, h, d = VIT_B448["batch"], VIT_B448["tokens"], VIT_B448["heads"], VIT_B448["head_dim"]
+    tb = TRAIN_BATCH
+    scale = d**-0.5
+    main = {dt: randn((b, t, 3, h, d), dt) for dt in (torch.bfloat16, torch.float32)}
+    one = {dt: randn((1, t, 3, h, d), dt) for dt in (torch.bfloat16, torch.float32)}
+    train = {dt: randn((tb, t, 3, h, d), dt) for dt in (torch.bfloat16, torch.float32)}
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        errs[("fwd", dt)] = hold("vit-b448", main[dt], scale, backward=False)[0]
+        hold("vit-b448", one[dt], scale, backward=False)
+        errs[("train", dt)] = hold("vit-b448 train", train[dt], scale, backward=True)
+    for dt in (torch.bfloat16, torch.float32):
+        for hd in (48, 32):
+            for t_len in (37, 129):
+                big = randn((3, t_len + 7, 3, 4, hd), dt)  # a strided slice: batch and token strides of the big one
+                hold("strided slice", big[1:, 3:3 + t_len], hd**-0.5, backward=True)
+                n = 2 * t_len * 3 * 2 * hd
+                flat = randn((n + 1,), dt)  # one element off: 2 (bf16) or 4 (f32) bytes off 16-byte alignment
+                view = flat[1:].view(2, t_len, 3, 2, hd)
+                check(view.data_ptr() % 16 != 0, "flash: the misaligned view is aligned")
+                hold("misaligned view", view, hd**-0.5, backward=True)
+    # the f32 kernels once each (the same bodies; the bound is the f32 rate's)
+    f32_qkv = train[torch.float32]
+    o, m, l = fa.flash_forward(f32_qkv, scale)
+    do = randn(o.shape, torch.float32)
+    di, grad = fa.row_dot(o, do), torch.empty_like(f32_qkv)
+    f32_ms = (cuda_graph_ms([lambda: fa.flash_forward(main[torch.float32], scale)] * 2),
+              cuda_graph_ms([lambda: fa.flash_backward_dkv(f32_qkv, do, m, l, di, grad, scale)] * 2),
+              cuda_graph_ms([lambda: fa.flash_backward_dq(f32_qkv, do, m, l, di, grad, scale)] * 2))
+    del main[torch.float32], one[torch.float32], train[torch.float32], f32_qkv, o, m, l, do, di, grad
+
+    # times: each kernel, then its library call, in turns
+    def sdpa_inputs(qkv, grad):
+        return [x.transpose(1, 2).detach().requires_grad_(grad) for x in qkv.unbind(dim=2)]  # (B, H, T, D)
+
+    q32, k32, v32 = sdpa_inputs(main[torch.bfloat16], False)
+    q1, k1, v1 = sdpa_inputs(one[torch.bfloat16], False)
+    qkv16 = train[torch.bfloat16]
+    o16, m16, l16 = fa.flash_forward(qkv16, scale)
+    do16 = randn(o16.shape, torch.bfloat16)
+    di16 = fa.row_dot(o16, do16)
+    grad16 = torch.empty_like(qkv16)
+    sq, sk, sv = sdpa_inputs(qkv16, True)
+    sdo = do16.transpose(1, 2)
+
+    def sdpa_both():
+        # forward and backward in one capture: autograd runs a backward on
+        # its forward's stream, so the forward is captured too
+        return torch.autograd.grad(F.scaled_dot_product_attention(sq, sk, sv, scale=scale), (sq, sk, sv), sdo)
+
+    readings = {key: [] for key in ("fwd32", "sdpa32", "fwd1", "sdpa1", "fwd16", "sdpa16", "dkv", "dq",
+                                    "sdpa_both")}
+    for _ in range(FLASH_READINGS):
+        readings["fwd32"].append(cuda_graph_ms([lambda: fa.flash_forward(main[torch.bfloat16], scale)] * 2))
+        readings["sdpa32"].append(cuda_graph_ms(
+            [lambda: F.scaled_dot_product_attention(q32, k32, v32, scale=scale)] * 8))
+        readings["fwd1"].append(cuda_graph_ms([lambda: fa.flash_forward(one[torch.bfloat16], scale)] * 8))
+        readings["sdpa1"].append(cuda_graph_ms(
+            [lambda: F.scaled_dot_product_attention(q1, k1, v1, scale=scale)] * 8))
+        readings["fwd16"].append(cuda_graph_ms([lambda: fa.flash_forward(qkv16, scale)] * 2))
+        readings["sdpa16"].append(cuda_graph_ms(
+            [lambda: F.scaled_dot_product_attention(sq, sk, sv, scale=scale)] * 8))
+        readings["dkv"].append(cuda_graph_ms(
+            [lambda: fa.flash_backward_dkv(qkv16, do16, m16, l16, di16, grad16, scale)] * 2))
+        readings["dq"].append(cuda_graph_ms(
+            [lambda: fa.flash_backward_dq(qkv16, do16, m16, l16, di16, grad16, scale)] * 2))
+        readings["sdpa_both"].append(cuda_graph_ms([sdpa_both] * 4))
+    best = {key: min(v) for key, v in readings.items()}
+    # SDPA's backward: its forward and backward less its forward, least against least
+    best["sdpa_bwd"] = best["sdpa_both"] - best["sdpa16"]
+    plain_fwd32 = cuda_ms(lambda: fa.flash_forward_plain(*main[torch.bfloat16].unbind(dim=2), scale),
+                          iters=2, warmup=1)
+    plain_fwd1 = cuda_graph_ms([lambda: fa.flash_forward_plain(*one[torch.bfloat16].unbind(dim=2), scale)] * 2)
+    plain_bwd = cuda_ms(lambda: fa.flash_backward_plain(*qkv16.unbind(dim=2), o16, m16, l16, do16, scale),
+                        iters=2, warmup=1)
+
+    elt = 2  # bf16 bytes
+    fwd_flops = {bb: _flash_products(bb, t, h, d, 2) for bb in (b, 1, tb)}
+
+    def bound(flops, bytes_moved, rate=BF16_FLOPS_PER_S):
+        t_ops, t_bytes = flops / rate * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    def fwd_bytes(bb):  # qkv read, o written, m and l (f32) written
+        return bb * t * h * (4 * d * elt + 2 * 4)
+
+    bwd_in = tb * t * h * (4 * d * elt + 3 * 4)  # q, k, v, dO, and m, l, di (f32)
+    lines = []
+    for key, bb, lib in (("fwd32", b, "sdpa32"), ("fwd1", 1, "sdpa1"), ("fwd16", tb, "sdpa16")):
+        bms, by = bound(fwd_flops[bb], fwd_bytes(bb))
+        lines.append(f"bf16 forward B={bb}: kernel {best[key]:.4f} ms (readings "
+                     f"{' / '.join(f'{r:.4f}' for r in readings[key])}), sdpa {best[lib]:.4f} ms, bound {bms:.4f} ms "
+                     f"({by}: {fwd_flops[bb] / 1e9:.1f} GFLOP, {fwd_bytes(bb) / 1e6:.1f} MB), "
+                     f"{fwd_flops[bb] / (best[key] * 1e-3) / 1e12:.2f} TFLOP/s")
+    dkv_bound, dkv_by = bound(_flash_products(tb, t, h, d, 4), bwd_in + tb * t * h * 2 * d * elt)
+    dq_bound, dq_by = bound(_flash_products(tb, t, h, d, 3), bwd_in + tb * t * h * d * elt)
+    five, seven = (_flash_products(tb, t, h, d, n) for n in (5, 7))
+    lines.append(f"bf16 backward B={tb}: dK/dV kernel {best['dkv']:.4f} ms (bound {dkv_bound:.4f} ms, 4 products), "
+                 f"dQ kernel {best['dq']:.4f} ms (bound {dq_bound:.4f} ms, 3 products), together "
+                 f"{best['dkv'] + best['dq']:.4f} ms; sdpa backward {best['sdpa_bwd']:.4f} ms (forward and backward "
+                 f"{' / '.join(f'{r:.4f}' for r in readings['sdpa_both'])} less the forward); bound of the backward "
+                 f"{five / BF16_FLOPS_PER_S * 1e3:.4f} ms (five products, {five / 1e9:.1f} GFLOP), "
+                 f"{seven / BF16_FLOPS_PER_S * 1e3:.4f} ms as these kernels split it (seven, {seven / 1e9:.1f} GFLOP)")
+    lines.append(f"bf16 plain: forward B={b} {plain_fwd32:.4f} ms, B=1 {plain_fwd1:.4f} ms, backward B={tb} "
+                 f"{plain_bwd:.4f} ms")
+    lines.append(f"f32 kernels (one reading each): forward B={b} {f32_ms[0]:.4f} ms (bound "
+                 f"{fwd_flops[b] / F32_FLOPS_PER_S * 1e3:.4f} ms at 67 TFLOP/s), dK/dV B={tb} {f32_ms[1]:.4f} ms "
+                 f"(bound {_flash_products(tb, t, h, d, 4) / F32_FLOPS_PER_S * 1e3:.4f}), dQ {f32_ms[2]:.4f} ms "
+                 f"(bound {_flash_products(tb, t, h, d, 3) / F32_FLOPS_PER_S * 1e3:.4f})")
+    for line in lines:
+        print(f"flash attention {line}")
+    print(f"flash attention phase {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, replaces, err, ms, plain_ms, bms, by, lib):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "kobato_eyes_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"kobato_eyes_tpu/models/vit.py:122 (jax/experimental/pallas/ops/tpu/{replaces})",
+            "launches": None,  # filled from the whole script's runs
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bms,
+            "bound_by": by,
+            "library_ms": lib,
+        }
+
+    train_errs = errs[("train", torch.bfloat16)]
+    fwd_bound, fwd_by = bound(fwd_flops[b], fwd_bytes(b))
+    return (
+        entry("flash_forward", "flash_attention.py:758", errs[("fwd", torch.bfloat16)], best["fwd32"],
+              plain_fwd32, fwd_bound, fwd_by, best["sdpa32"]),
+        entry("flash_backward_dkv", "flash_attention.py:1121", max(train_errs[2:]), best["dkv"], plain_bwd,
+              dkv_bound, dkv_by, best["sdpa_bwd"]),
+        entry("flash_backward_dq", "flash_attention.py:1456", train_errs[1], best["dq"], plain_bwd,
+              dq_bound, dq_by, best["sdpa_bwd"]),
+    )
+
+
+def flash_vit_phase() -> int:
+    """The ViT-B/448 forward at batch 32 with ``attn_impl="flash"`` beside the
+    exact (einsum) forward on the same seeded weights and normalised images:
+    probabilities within 3e-2, 12 flash forward launches and no kernel-1
+    launch. Returns the flash forward launches."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.models.vit import ViT, init_vit_, vit_config
+    from kobato_eyes_tpu_torch.ops import attention
+    from kobato_eyes_tpu_torch.ops import flash_attention as fa
+
+    cfg = vit_config("base", image_size=448, num_classes=N_LABELS, attn_impl="flash")
+    flash = init_vit_(ViT(cfg), torch.Generator().manual_seed(3)).to(DEVICE).eval().requires_grad_(False)
+    exact = ViT(vit_config("base", image_size=448, num_classes=N_LABELS))
+    exact.load_state_dict(flash.state_dict())
+    exact = exact.to(DEVICE).eval().requires_grad_(False)
+    size = cfg.image_size
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(BATCH, size, size, 3)).astype(np.float32)).to(DEVICE)
+    with torch.no_grad():
+        fa.launches = attention.launches = attention.launches_separate = 0
+        probs = torch.sigmoid(flash(x).float())
+        torch.cuda.synchronize()
+        launches, kernel1 = fa.launches, attention.launches + attention.launches_separate
+        want = torch.sigmoid(exact(x).float())
+        err = float((probs - want).abs().max())
+        flash_ms = cuda_ms(lambda: flash(x), iters=3, warmup=1)
+        exact_ms = cuda_ms(lambda: exact(x), iters=3, warmup=1)
+    print(f"flash vit-b448 batch {BATCH} forward: probabilities max |flash - einsum| {err:.3e} (tol 3e-2); "
+          f"flash forward launches {launches}, kernel-1 launches {kernel1}; {flash_ms:.2f} ms, einsum "
+          f"{exact_ms:.2f} ms (CUDA events, warm, mean of 3)")
+    check(bool(torch.isfinite(probs).all()) and tuple(probs.shape) == (BATCH, N_LABELS), "flash vit: probabilities")
+    check(err <= 3e-2, f"flash vit: probabilities {err} apart from the einsum forward")
+    check(launches == cfg.depth and kernel1 == 0, f"flash vit: {launches} flash, {kernel1} kernel-1 launches")
+    del flash, exact, x
+    torch.cuda.empty_cache()
+    return launches
 
 
 SIGMOID_LOGITS = (BATCH, N_LABELS)  # the tagger's logits a batch
@@ -3084,6 +3371,123 @@ def train_phase(work: Path, lib: Path) -> tuple[int, int, int]:
     return train_gelu + index_gelu, train_gelu_backward, index_attn
 
 
+FLASH_TRAIN_STEPS = 3
+
+
+def flash_train_phase() -> tuple[int, int, int]:
+    """3 train steps at ViT-B/16 @ 448, batch 16, 8192 labels with
+    ``attn_impl="flash"`` beside the einsum step from the same seeded
+    weights on the same seeded batches: losses within 1e-3 relative,
+    step-1 gradient norms per tensor within 0.99-1.01 of the einsum step's;
+    each tensor's step-1 gradient no further (max |dg| / max |g|) from an
+    f32 einsum step's than twice the bf16 einsum step's worst tensor is,
+    and within 3e-2 of the bf16 einsum step's; exactly 12 forward, 12 dK/dV
+    and 12 dQ launches a step. Then both steps' ms (CUDA events, warm, mean
+    of 5) and peak memory. Returns the three kernels' launches."""
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.models.preprocess import PreprocessSpec
+    from kobato_eyes_tpu_torch.models.train import TrainConfig, _init_model, make_train_step
+    from kobato_eyes_tpu_torch.models.vit import ViT, vit_config
+    from kobato_eyes_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    spec = PreprocessSpec(mode="wd14", size=TRAIN_SIZE)
+    ecfg = vit_config("base", image_size=TRAIN_SIZE, num_classes=N_LABELS)
+    fcfg = vit_config("base", image_size=TRAIN_SIZE, num_classes=N_LABELS, attn_impl="flash")
+    einsum_model = _init_model(ecfg)
+    flash_model = ViT(fcfg)
+    flash_model.load_state_dict(einsum_model.state_dict())
+    flash, _ = make_train_step(fcfg, spec, TrainConfig(), model=flash_model, device=DEVICE)
+    einsum, _ = make_train_step(ecfg, spec, TrainConfig(), model=einsum_model, device=DEVICE)
+    rng = np.random.default_rng(72)
+    batches = [(torch.from_numpy(rng.integers(0, 256, size=(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                                             dtype=np.uint8)).to(DEVICE),
+                torch.from_numpy((rng.random((TRAIN_BATCH, N_LABELS)) < 0.05).astype(np.float32)).to(DEVICE))
+               for _ in range(FLASH_TRAIN_STEPS)]
+    # the f32 einsum step's gradients on the first batch: what both bf16 steps approximate
+    rcfg = vit_config("base", image_size=TRAIN_SIZE, num_classes=N_LABELS, dtype=torch.float32)
+    ref_model = ViT(rcfg)
+    ref_model.load_state_dict(einsum_model.state_dict())
+    ref, _ = make_train_step(rcfg, spec, TrainConfig(), model=ref_model, device=DEVICE)
+    ref.loss(*batches[0]).backward()
+    ref_grads = {k: p.grad.float().clone() for k, p in ref.model.named_parameters()}
+    del ref, ref_model
+    torch.cuda.empty_cache()
+
+    fa.launches = fa.backward_dkv_launches = fa.backward_dq_launches = 0
+    losses, grads = [], None
+    for x, y in batches:
+        losses.append(float(flash(x, y)))
+        if grads is None:
+            grads = {k: p.grad.float().clone() for k, p in flash.model.named_parameters()}
+    counts = (fa.launches, fa.backward_dkv_launches, fa.backward_dq_launches)
+    expect = FLASH_TRAIN_STEPS * fcfg.depth
+    check(counts == (expect,) * 3, f"flash train: launches (forward, dK/dV, dQ) {counts} != {expect} each")
+    one_losses, one_grads = [], None
+    for x, y in batches:
+        one_losses.append(float(einsum(x, y)))
+        if one_grads is None:
+            one_grads = {k: p.grad.float().clone() for k, p in einsum.model.named_parameters()}
+    check(all(np.isfinite(losses)), f"flash train: losses {losses}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    ratios, dg = {}, {}
+    for name, want in one_grads.items():
+        got = grads[name]
+        ratios[name] = float(got.norm() / want.norm())
+        dg[name] = float((got - want).abs().max() / want.abs().max())
+    worst_ratio = max(ratios, key=lambda k: abs(ratios[k] - 1.0))
+    worst_dg = max(dg, key=dg.get)
+
+    def off_f32(g):  # each tensor's max |g - g_f32| / max |g_f32|
+        return {k: float((g[k] - r).abs().max() / r.abs().max()) for k, r in ref_grads.items()}
+
+    flash_off, einsum_off = off_f32(grads), off_f32(one_grads)
+    for name, off in (("flash", flash_off), ("einsum", einsum_off)):
+        worst = sorted(off, key=off.get, reverse=True)[:4]
+        print(f"flash train: {name} bf16 step-1 gradients against the f32 einsum step's, max |dg| / max |g|: "
+              + ", ".join(f"{k} {off[k]:.3e}" for k in worst)
+              + f"; {worst_dg}: flash {flash_off[worst_dg]:.3e}, einsum {einsum_off[worst_dg]:.3e}")
+    print(f"flash train vit-b448 batch {TRAIN_BATCH}: losses {' '.join(f'{v:.6f}' for v in losses)} vs einsum "
+          f"{' '.join(f'{v:.6f}' for v in one_losses)} (max rel {rel:.3e}, tol 1e-3); step-1 gradient norm ratio "
+          f"{min(ratios.values()):.5f}..{max(ratios.values()):.5f} (worst {worst_ratio}), max |dg| / max |g| "
+          f"{dg[worst_dg]:.3e} ({worst_dg}, tol 3e-2); launches a step: forward {counts[0] // FLASH_TRAIN_STEPS}, "
+          f"dK/dV {counts[1] // FLASH_TRAIN_STEPS}, dQ {counts[2] // FLASH_TRAIN_STEPS}")
+    check(rel <= 1e-3, f"flash train: losses {rel} apart from the einsum step (relative)")
+    check(all(0.99 <= v <= 1.01 for v in ratios.values()),
+          f"flash train: gradient norm ratio {ratios[worst_ratio]} ({worst_ratio})")
+    # two bf16 roundings of one step: the flash path rounds dS to bf16 before
+    # dQ and dK, as the JAX kernels do, where the einsum path keeps it in
+    # f32; each is held to the f32 step, the flash step within twice the
+    # einsum step's worst tensor, and to each other at PR 11's bar
+    worst_flash = max(flash_off, key=flash_off.get)
+    einsum_worst = max(einsum_off.values())
+    check(flash_off[worst_flash] <= 2 * einsum_worst, f"flash train: gradient {worst_flash} "
+          f"{flash_off[worst_flash]} from the f32 step's, past twice the einsum step's {einsum_worst}")
+    check(dg[worst_dg] <= 3e-2, f"flash train: gradient {worst_dg} {dg[worst_dg]} apart from the einsum step's")
+
+    x, y = batches[0]
+    del grads, one_grads
+    times = {}
+    for name, step in (("flash", flash), ("einsum", einsum), ("einsum", einsum), ("flash", flash)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(x, y), iters=5, warmup=2)
+        times.setdefault(name, []).append((ms, torch.cuda.max_memory_allocated()))
+    flash_ms, flash_peak = min(times["flash"])
+    einsum_ms, einsum_peak = min(times["einsum"])
+    print(f"flash train step vit-b448 batch {TRAIN_BATCH}: flash {flash_ms:.2f} ms, einsum {einsum_ms:.2f} ms "
+          f"(CUDA events, warm, mean of 5, the least of two readings in turns: flash "
+          f"{' / '.join(f'{ms:.2f}' for ms, _ in times['flash'])}, einsum "
+          f"{' / '.join(f'{ms:.2f}' for ms, _ in times['einsum'])}); max_memory_allocated flash "
+          f"{flash_peak / 2**30:.2f} GiB, einsum {einsum_peak / 2**30:.2f} GiB (both steps resident); "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    del flash, einsum, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _http(base: str, route: str, payload=None) -> tuple[int, str, bytes]:
     import urllib.error
     import urllib.request
@@ -3723,9 +4127,10 @@ def main() -> int:
     window = window_attention_phase()
     ln = layernorm_residual_phase()
     act, act_backward = gelu_phase()
+    flash_fwd, flash_dkv, flash_dq = flash_attention_phase()
     sigmoid = sigmoid_phase()
     hamming = pairwise_hamming_phase()
-    kernels = [attn, attn_separate, window, ln, hamming, act, act_backward, sigmoid]
+    kernels = [attn, attn_separate, window, ln, hamming, act, act_backward, sigmoid, flash_fwd, flash_dkv, flash_dq]
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_root))
@@ -3741,6 +4146,9 @@ def main() -> int:
         ann_launches, sep_ann = ann_phase(work, lib, labels)
         check(ann_launches == attn["launches"], "attention launches of the ANN index run")
         gelu_train, act_backward["launches"], train_attn = train_phase(work, lib)  # before upkeep changes the library
+        flash_vit = flash_vit_phase()
+        flash_fwd["launches"], flash_dkv["launches"], flash_dq["launches"] = flash_train_phase()
+        flash_fwd["launches"] += flash_vit
         up_attn, up_window, sep_up = upkeep_phase(work, lib, labels, cfg)
         attn["launches"] += up_attn + train_attn
         window["launches"] += up_window

@@ -222,8 +222,9 @@ _MERGE_ORDER = (0, 2, 1, 3)
 def swin_state_from_jax_params(params: Mapping[str, Any], cfg: SwinConfig) -> dict[str, torch.Tensor]:
     """flax param tree of the JAX SwinV2 -> the port's (timm-named) state dict.
 
-    The JAX tree holds a full (3, H, hd) qkv bias; SwinV2 learns only q's
-    and v's, so a non-zero k slice raises.
+    The JAX tree holds a full (3, H, hd) qkv bias, whose thirds become
+    ``attn.q_bias``, ``attn.k_bias`` and ``attn.v_bias`` (timm's SwinV2
+    holds no k bias; the JAX step trains one, and so does the port's).
     """
     d0, p = cfg.embed_dim, cfg.patch_size
     pe = params["patch_embed"]
@@ -249,10 +250,9 @@ def swin_state_from_jax_params(params: Mapping[str, Any], cfg: SwinConfig) -> di
             attn = bp["attn"]
             pre = f"layers.{stage}.blocks.{blk}."
             qkv_bias = _np(attn["qkv"]["bias"]).reshape(3, c)
-            if np.any(qkv_bias[1] != 0):
-                raise ValueError(f"{pre}attn: the k bias is not zero; SwinV2 has no k bias")
             state[pre + "attn.qkv.weight"] = _tensor(_np(attn["qkv"]["kernel"]).reshape(c, 3 * c).T)
             state[pre + "attn.q_bias"] = _tensor(qkv_bias[0])
+            state[pre + "attn.k_bias"] = _tensor(qkv_bias[1])
             state[pre + "attn.v_bias"] = _tensor(qkv_bias[2])
             state[pre + "attn.logit_scale"] = _tensor(_np(attn["logit_scale"]).reshape(heads, 1, 1))
             state[pre + "attn.cpb_mlp.0.weight"] = _tensor(_np(attn["cpb_fc1"]["kernel"]).T)
@@ -281,9 +281,11 @@ def swin_params_from_torch_state(
 
     Takes the q/v biases as ``attn.q_bias``/``attn.v_bias`` or a full
     ``attn.qkv.bias`` (whose k slice must be zero), and the classifier as
-    ``head.fc.*`` or a flat ``head.*``. Derived buffers (CPB tables, index,
-    masks) are ignored: the port builds its own. A state dict without the
-    head loads with the head left as it was.
+    ``head.fc.*`` or a flat ``head.*``. The port's ``attn.k_bias`` is taken
+    where the state has one (the port's own state) and is zero elsewhere
+    (timm saves none). Derived buffers (CPB tables, index, masks) are
+    ignored: the port builds its own. A state dict without the head loads
+    with the head left as it was.
     """
 
     def get(key: str) -> np.ndarray:
@@ -311,6 +313,12 @@ def swin_params_from_torch_state(
         if tuple(arr.shape) != tuple(want):
             raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {tuple(want)}")
         out[key] = _tensor(arr)
+        if key.endswith("attn.q_bias"):
+            k_key = key.replace("q_bias", "k_bias")
+            k_bias = get(k_key) if k_key in state else np.zeros(want, np.float32)
+            if tuple(k_bias.shape) != tuple(want):
+                raise ValueError(f"{k_key}: shape {tuple(k_bias.shape)} != expected {tuple(want)}")
+            out[k_key] = _tensor(k_bias)
     return out
 
 
@@ -326,7 +334,7 @@ _DERIVED_KEY_SUFFIXES = (
     "relative_coords_table",
     "relative_position_index",
     "attn_mask",
-    "k_bias",  # SwinV2 keeps the k bias fixed at zero (a buffer in timm)
+    "k_bias",  # timm's SwinV2 fixes it at zero (a buffer); the port's trains it
 )
 
 

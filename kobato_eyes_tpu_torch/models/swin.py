@@ -149,8 +149,13 @@ def _shift_attn_mask(grid: int, w: int, shift: int) -> np.ndarray:
 
 
 class WindowAttention(nn.Module):
-    """SwinV2 window attention: qkv with q/v biases (k's fixed at zero), the
-    clamped logit scale, the log-CPB bias MLP and the output projection."""
+    """SwinV2 window attention: qkv with q, k and v biases, the clamped logit
+    scale, the log-CPB bias MLP and the output projection.
+
+    timm's SwinV2 fixes the k bias at zero (a buffer it does not save); the
+    JAX package's qkv bias spans q, k and v and trains all three, so here
+    ``k_bias`` is a parameter, zero-initialised. A state without it (timm
+    names) loads it as zero, and the forward is then timm's."""
 
     def __init__(self, cfg: SwinConfig, dim: int, num_heads: int, num_windows: int) -> None:
         super().__init__()
@@ -159,6 +164,7 @@ class WindowAttention(nn.Module):
         self.num_windows = num_windows
         self.qkv = Linear(dim, 3 * dim, cfg, bias=False)
         self.q_bias = nn.Parameter(torch.zeros(dim, dtype=cfg.param_dtype))
+        self.k_bias = nn.Parameter(torch.zeros(dim, dtype=cfg.param_dtype))
         self.v_bias = nn.Parameter(torch.zeros(dim, dtype=cfg.param_dtype))
         self.logit_scale = nn.Parameter(
             torch.full((num_heads, 1, 1), math.log(10.0), dtype=torch.float32)
@@ -171,6 +177,11 @@ class WindowAttention(nn.Module):
         self.proj = Linear(dim, dim, cfg)
         rel = _relative_log_coords(cfg.window_size, cfg.pretrained_window_size)
         self.register_buffer("relative_coords", torch.from_numpy(rel.astype(np.float32)), persistent=False)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a timm-named state holds no k bias: it loads as zero
+        state_dict.setdefault(prefix + "k_bias", torch.zeros_like(self.k_bias))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def cpb_bias(self) -> torch.Tensor:
         """(H, n, n) f32: 16 * sigmoid(MLP(relative coordinates))."""
@@ -185,7 +196,7 @@ class WindowAttention(nn.Module):
         # f32 constant promotes a bf16 logit scale before the exp
         scale = torch.exp(torch.clamp(self.logit_scale.float(), max=math.log(100.0)))
         bias = self.cpb_bias()
-        qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+        qkv_bias = torch.cat([self.q_bias, self.k_bias, self.v_bias])
         if cfg.attn_impl == "pallas":
             # the window axis stays unflattened through qkv, and the output
             # projection reads the kernel's (B, nW, n, H, hd) buffer as is

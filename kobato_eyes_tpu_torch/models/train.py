@@ -7,11 +7,15 @@ JAX step takes and returns ``(params, opt_state)``. The optimizer is optax's
 ``torch.optim.AdamW`` with betas (0.9, 0.999), eps 1e-8 and the same decay
 (torch's own default decay, 0.01, is not taken).
 
-No port of a Pallas kernel has a backward, and neither has any Pallas
-kernel of the JAX package (``jax.grad`` through one fails to linearize): a
-model configured with the attention kernels (``attn_impl="pallas"``, ViT or
+``attn_impl="flash"`` trains through its own backward kernels, as the JAX
+package's Pallas flash attention does through its ``custom_vjp``: the
+forward kernel of ``ops/flash_attention.py`` saves the row max and sum, and
+the dK/dV and dQ kernels run in the backward. The other Pallas kernels of
+the JAX package have no backward (``jax.grad`` through one fails to
+linearize), and neither have their ports: a model configured with the
+head-resident or window attention kernel (``attn_impl="pallas"``, ViT or
 SwinV2) or the residual LayerNorm kernel (``ln_impl="pallas_residual"``)
-raises here. ``"einsum"``, ``"fused"`` and ``"flash"`` (SDPA) train; the
+raises here. ``"einsum"``, ``"fused"`` (SDPA) and ``"flash"`` train; the
 GELU pass differentiates through its own backward kernel (``ops/gelu.py``).
 
 Over a (data, model) mesh (``parallel/mesh.py``) the JAX step is one ``jit``

@@ -56,9 +56,11 @@ class ViTConfig:
     # Python loop, so it has no effect (kept so configs carry across)
     unroll: int = 1
     # attn_impl: "einsum" (explicit f32 logits / softmax / weighted sum, the
-    # exact path), "fused" and "flash" (the JAX package's library attention:
-    # here F.scaled_dot_product_attention), "pallas" (in this package: the
-    # hand-written CUDA kernel of ops/attention.py).
+    # exact path), "fused" (XLA's library attention in the JAX package: here
+    # F.scaled_dot_product_attention), "flash" (the JAX package's Pallas
+    # flash attention, forward and backward: here the hand-written CUDA
+    # kernels of ops/flash_attention.py, which train), "pallas" (the
+    # hand-written CUDA kernel of ops/attention.py, forward only).
     attn_impl: str = "einsum"
 
     def __post_init__(self) -> None:
@@ -203,9 +205,13 @@ class Attention(nn.Module):
             from kobato_eyes_tpu_torch.ops.attention import head_resident_attention_packed
 
             out = head_resident_attention_packed(qkv, scale=scale)
+        elif cfg.attn_impl == "flash":
+            from kobato_eyes_tpu_torch.ops.flash_attention import flash_attention_packed
+
+            out = flash_attention_packed(qkv, scale)
         else:
             q, k, v = qkv.unbind(dim=2)  # (B, T, H, D)
-            if cfg.attn_impl in ("fused", "flash"):
+            if cfg.attn_impl == "fused":
                 out = F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale
                 ).transpose(1, 2)

@@ -27,8 +27,8 @@ JAX compiles four programs on a mesh here: the step at each layout and the
 gradient at data 4 x model 2, which every layout's gradients are held to
 (one model config serves all three). SwinV2 under a mesh is data parallel
 in the port; its case at data 4 is held to the JAX step on one device (the
-same computation at model 1) for one step, and to the port's one-device
-step for three.
+same computation at model 1) and to the port's one-device step, for three
+steps each, the trained k bias included.
 """
 
 from __future__ import annotations
@@ -319,25 +319,13 @@ SWIN = dict(image_size=32, patch_size=2, embed_dim=16, depths=(2, 2), num_heads=
             num_classes=11)
 
 
-def _without_k_bias(tree):
-    """The JAX SwinV2 tree with the k third of every qkv bias set to 0: the
-    JAX module's qkv bias spans q, k and v and trains all three, timm's (and
-    the port's) SwinV2 holds no k bias."""
-    tree = jax.tree.map(np.array, tree)
-    for name, block in tree.items():
-        if name.startswith("stage"):
-            bias = block["attn"]["qkv"]["bias"]
-            bias.reshape(3, -1)[1] = 0.0
-    return tree
-
-
 def test_swinv2_at_data_4_matches_the_jax_step_and_one_device():
     """SwinV2 is data parallel under a mesh: a whole replica on each row's
     first entry. Against the JAX step (one device: at model 1 its mesh step is
-    the same computation): the first loss and the weights after one step,
-    but the k bias, which the JAX SwinV2 trains and the port's does not hold
-    (ROADMAP, faults). Against the port's one-device step: losses, step-1
-    gradients and weights after 1 and 3 steps."""
+    the same computation): the losses of 3 steps and the weights after 1 and
+    3 steps, the k bias included, which both packages train. Against the
+    port's one-device step: losses, step-1 gradients and weights after 1 and
+    3 steps."""
     jcfg = jswin.SwinConfig(**SWIN, dtype=jnp.float32)
     tcfg = tswin.SwinConfig(**SWIN, dtype=torch.float32)
     params = jax.tree.map(np.asarray, jswin.init_swin_params(jcfg, seed=1))
@@ -349,20 +337,20 @@ def test_swinv2_at_data_4_matches_the_jax_step_and_one_device():
         m.load_state_dict(state, strict=True)
         return m
 
-    j_losses, j_states = _jax_run(jcfg, params, batches[:1], None, 32, model=jswin.SwinV2(jcfg))
-    k_moved = [np.abs(b["attn"]["qkv"]["bias"].reshape(3, -1)[1]).max()
-               for name, b in j_states[0].items() if name.startswith("stage")]
-    assert min(k_moved) > 0.5 * LR  # the fault: the JAX step moves a k bias the port does not have
-    assert not any("k_bias" in k for k in state)
-    j_state = timport.swin_state_from_jax_params(_without_k_bias(j_states[0]), tcfg)
+    j_losses, j_states = _jax_run(jcfg, params, batches, None, 32, model=jswin.SwinV2(jcfg))
+    j_states = [timport.swin_state_from_jax_params(s, tcfg) for s in j_states]
     losses, states, grads, step = _port_run(model(), None, batches, 32,
                                             mesh=make_mesh(data=4, devices=["cpu"] * 4))
     one_losses, one_states, one_grads, _ = _port_run(model(), None, batches, 32, device="cpu")
     assert [len(row) for row in step.forward.rows] == [1] * 4
-    np.testing.assert_allclose(losses[:1], j_losses, rtol=2e-6)
+    np.testing.assert_allclose(losses, j_losses, rtol=2e-6)
     np.testing.assert_allclose(losses, one_losses, rtol=2e-6)
     _check_grads(grads, one_grads)
     params_only = {k for k, _ in model().named_parameters()}
-    _check_weights(states[0], {k: v for k, v in j_state.items() if k in params_only}, one_grads)
+    k_keys = [k for k in params_only if k.endswith("attn.k_bias")]
+    assert len(k_keys) == sum(SWIN["depths"])
+    for key in k_keys:  # the step moves every k bias, in both packages
+        assert float(j_states[0][key].abs().max()) > 0.5 * LR and float(states[0][key].abs().max()) > 0.5 * LR
     for steps in (1, 3):
+        _check_weights(states[steps - 1], {k: j_states[steps - 1][k] for k in params_only}, one_grads)
         _check_weights(states[steps - 1], {k: one_states[steps - 1][k] for k in params_only}, one_grads)

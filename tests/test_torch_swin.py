@@ -109,16 +109,20 @@ def test_features_only_parity_f32():
 def test_state_round_trips_through_jax_importer():
     """swin_state_from_jax_params is the exact inverse of the JAX package's
     swin_params_from_torch_state: JAX tree -> port state -> JAX tree, bit
-    for bit."""
+    for bit. The JAX importer reads timm names, which hold no k bias: the
+    tree's k biases are zero here, and the port's state names them beside
+    timm's keys."""
     jcfg, tcfg = _configs("f32")
     params = _jax_params_np(jcfg, seed=3)
     # a non-trivial tree: q/v biases and merge kernels carry distinct values
     params = jax.tree.map(lambda a: a + np.arange(a.size, dtype=np.float32).reshape(a.shape) * 1e-3, params)
     for name, blk in params.items():
         if name.startswith("stage"):
-            blk["attn"]["qkv"]["bias"][1] = 0.0  # SwinV2 has no k bias
+            blk["attn"]["qkv"]["bias"][1] = 0.0  # timm's SwinV2 has no k bias
     state = timport.swin_state_from_jax_params(params, tcfg)
-    assert state.keys() == timport.swin_state_manifest(tcfg).keys()
+    k_keys = {k for k in state if k.endswith("attn.k_bias")}
+    assert len(k_keys) == sum(tcfg.depths)
+    assert state.keys() - k_keys == timport.swin_state_manifest(tcfg).keys()
     back = jimport.swin_params_from_torch_state(state, jcfg)
     flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])
     flat_orig = dict(jax.tree_util.tree_flatten_with_path(params)[0])
@@ -128,11 +132,77 @@ def test_state_round_trips_through_jax_importer():
 
 
 def test_nonzero_k_bias_raises():
+    """The JAX SwinV2 trains a k bias: a nonzero one carries across into
+    ``attn.k_bias`` (it raised while the port held none) and the port's
+    forward equals the JAX forward."""
     jcfg, tcfg = _configs("f32")
     params = jax.tree.map(np.array, _jax_params_np(jcfg))  # writable copies
-    params["stage0_block0"]["attn"]["qkv"]["bias"][1, 0, 0] = 0.5
-    with pytest.raises(ValueError, match="k bias"):
-        timport.swin_state_from_jax_params(params, tcfg)
+    rng = np.random.default_rng(5)
+    for name, blk in params.items():
+        if name.startswith("stage"):
+            k = blk["attn"]["qkv"]["bias"][1]
+            k[...] = rng.normal(size=k.shape) * 0.5
+    state = timport.swin_state_from_jax_params(params, tcfg)
+    np.testing.assert_array_equal(state["layers.0.blocks.0.attn.k_bias"].numpy(),
+                                  params["stage0_block0"]["attn"]["qkv"]["bias"][1].reshape(-1))
+    x = np.random.default_rng(6).uniform(-2, 2, size=(3, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(jswin.SwinV2(jcfg).apply({"params": params}, jnp.asarray(x)), np.float32)
+    with torch.no_grad():
+        got = _port_model(params, tcfg)(torch.from_numpy(x)).numpy()
+        zero_k = _port_model(jax.tree.map(np.array, _jax_params_np(jcfg)), tcfg)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    assert np.abs(got - zero_k).max() > 1e-3  # the k bias moves the forward
+
+
+def test_timm_state_without_k_bias_loads_as_zero(tmp_path):
+    """A timm-named state (no ``attn.k_bias``) loads straight into the model
+    and through the importer with the k bias at zero, and the outputs are
+    those of the state that names the zeros."""
+    from safetensors.torch import save_file
+
+    jcfg, tcfg = _configs("f32")
+    full = timport.swin_state_from_jax_params(_jax_params_np(jcfg), tcfg)
+    timm = {k: v for k, v in full.items() if not k.endswith("attn.k_bias")}
+    assert timm.keys() == timport.swin_state_manifest(tcfg).keys()
+    x = torch.from_numpy(np.random.default_rng(7).uniform(-2, 2, size=(2, 32, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = tswin.SwinV2(tcfg).eval()
+        want.load_state_dict(full, strict=True)
+        want = want(x)
+        for state in (timm, timport.swin_params_from_torch_state(timm, tcfg)):
+            model = tswin.SwinV2(tcfg).eval()
+            model.load_state_dict(state, strict=True)
+            assert all(not m.k_bias.any() for m in model.modules() if isinstance(m, tswin.WindowAttention))
+            assert torch.equal(model(x), want)
+    save_file(timm, str(tmp_path / "timm.safetensors"))
+    got = timport.import_torch_checkpoint(tmp_path / "timm.safetensors", tcfg)
+    assert got.keys() == full.keys()
+    assert all(torch.equal(got[k], full[k]) for k in full)
+
+
+def test_port_checkpoint_round_trips_a_nonzero_k_bias(tmp_path):
+    """A fine-tuned SwinV2's k bias survives the port's checkpoint directory
+    (``model.safetensors`` + ``manifest.json``), read back through the
+    tagger and through ``import_torch_checkpoint``."""
+    from kobato_eyes_tpu_torch.models import labels as tlabels
+    from kobato_eyes_tpu_torch.models import tagger as ttagger
+
+    jcfg, tcfg = _configs("f32")
+    state = timport.swin_state_from_jax_params(_jax_params_np(jcfg), tcfg)
+    rng = np.random.default_rng(8)
+    for key in [k for k in state if k.endswith("attn.k_bias")]:
+        state[key] = torch.from_numpy(rng.normal(size=tuple(state[key].shape)).astype(np.float32))
+    manifest = {"arch": "swinv2", "preset": "tiny", "image_size": tcfg.image_size,
+                "num_classes": tcfg.num_classes, "patch_size": tcfg.patch_size}
+    ckpt = ttagger.save_checkpoint(tmp_path / "ck", state, manifest=manifest)
+    got = timport.import_torch_checkpoint(ckpt, tcfg)
+    assert got.keys() == state.keys()
+    assert all(torch.equal(got[k], state[k]) for k in state)
+    tagger = ttagger.WD14Tagger(labels=tlabels.synthetic_labels(tcfg.num_classes), swin=tcfg,
+                                checkpoint_path=ckpt, device="cpu")
+    loaded = tagger._model.state_dict()
+    for key in (k for k in state if k.endswith("attn.k_bias")):
+        assert torch.equal(loaded[key], state[key]), key
 
 
 def _torch_swinv2_class():
@@ -197,7 +267,11 @@ def test_manifests_equal_jax_package():
         assert timport.vit_state_manifest(tvit.vit_config("base"), head=head) == \
             jimport.vit_state_manifest(jvit.vit_config("base"), head=head)
     port_state = tswin.SwinV2(tswin.swin_config("tiny", image_size=224)).state_dict()
-    assert {k: tuple(v.shape) for k, v in port_state.items()} == \
+    k_bias = {k: tuple(v.shape) for k, v in port_state.items() if k.endswith("attn.k_bias")}
+    assert k_bias == {k.replace("q_bias", "k_bias"): shape for k, shape in
+                      timport.swin_state_manifest(tswin.swin_config("tiny", image_size=224)).items()
+                      if k.endswith("attn.q_bias")}
+    assert {k: tuple(v.shape) for k, v in port_state.items() if k not in k_bias} == \
         timport.swin_state_manifest(tswin.swin_config("tiny", image_size=224))
 
 
