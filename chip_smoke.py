@@ -255,6 +255,38 @@ def _extreme_qkv(t: int, h: int, d: int, seed: int):
     return np.stack([q, k, v], axis=2).astype(np.float32)
 
 
+def tiny_fast_math() -> None:
+    """The tiny preset with four heads (192 / 4 = 48 wide, as the dry run's
+    infer check builds it) at 448 px with ``fast_math`` on ``cuda``: kernel
+    1 at D = 48 inside the tagger's forward, against the exact forward from
+    the same weights, max |dp| <= 0.02."""
+    import numpy as np
+
+    from kobato_eyes_tpu_torch.models.labels import synthetic_labels
+    from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
+    from kobato_eyes_tpu_torch.models.vit import vit_config
+    from kobato_eyes_tpu_torch.ops import attention as attn
+
+    labels = synthetic_labels(N_LABELS)
+    cfg = vit_config("tiny", image_size=448, num_classes=N_LABELS, num_heads=4)
+    fast = WD14Tagger(labels=labels, vit=cfg, device="cuda")
+    exact = WD14Tagger(labels=labels, vit=cfg, device="cuda", fast_math=False, params=fast._model.state_dict())
+    check(fast.cfg.attn_impl == "pallas" and fast.cfg.hidden_dim // fast.cfg.num_heads == 48,
+          "tiny preset: fast_math at head width 48")
+    rng = np.random.default_rng(9)
+    batch = fast.prepare_batch_from_rgb([rng.integers(0, 256, size=(448, 448, 3), dtype=np.uint8)
+                                         for _ in range(8)])
+    before = attn.launches
+    p_fast = fast.forward_probs(batch).float()
+    launched = attn.launches - before
+    p_exact = exact.forward_probs(batch).float()
+    dp = float((p_fast - p_exact).abs().max())
+    print(f"tiny preset fast_math (D 48) on cuda: {launched} kernel-1 launches, max |dp| {dp:.3e} (tol 0.02)")
+    check(launched == fast.cfg.depth, f"tiny fast_math: {launched} kernel-1 launches, not {fast.cfg.depth}")
+    check(dp <= 0.02, f"tiny fast_math: max |dp| {dp} against the exact forward")
+    del fast, exact
+
+
 def attention_phase() -> tuple[dict, dict]:
     """Kernel 1 (packed qkv) and kernel 2 (separate q, k, v; the same CUDA
     kernels) against their plain versions; returns both kernels' entries."""
@@ -271,7 +303,14 @@ def attention_phase() -> tuple[dict, dict]:
         rng = np.random.default_rng(seed)
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
 
-    def compare(name, qkv, scale, tol, packed=True):
+    def ulp(x: float) -> float:  # one bf16 ulp of |x| (8 significant bits)
+        return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+    def compare(name, qkv, scale, tol, packed=True, exact=False):
+        """max |kernel - plain| <= tol. With ``exact`` (bf16), also no
+        further from the f64 plain version than twice the bf16 plain version
+        is, plus one bf16 ulp of the largest output (tol stays the outer
+        limit)."""
         if packed:
             got = attn.head_resident_attention_packed(qkv, scale=scale)
             want = attn.head_resident_attention_packed_plain(qkv, scale=scale)
@@ -286,6 +325,16 @@ def attention_phase() -> tuple[dict, dict]:
         variant = attn.kernel_variant(qkv.dtype, qkv.shape[-1])
         print(f"attention {name} [{variant}]: max_abs_err={err:.3e} (tol {tol:g})")
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
+        if exact and qkv.dtype == torch.bfloat16:
+            q64, k64, v64 = qkv.double().unbind(dim=2)
+            w64 = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q64 * scale, k64), dim=-1)
+            ref = torch.einsum("bhqk,bkhd->bqhd", w64, v64)
+            k_err = float((got.double() - ref).abs().max())
+            p_err = float((want.double() - ref).abs().max())
+            bar = 2 * p_err + ulp(float(ref.abs().max()))
+            print(f"attention {name}: max |kernel - f64| {k_err:.3e}, max |bf16 plain - f64| {p_err:.3e} "
+                  f"(bar {bar:.3e})")
+            check(k_err <= bar, f"{name}: max |kernel - f64| {k_err} > {bar}")
         return err
 
     b, t, h, d = (VIT_B448[k] for k in ("batch", "tokens", "heads", "head_dim"))
@@ -318,6 +367,23 @@ def attention_phase() -> tuple[dict, dict]:
             32**-0.5, 3e-2, packed=False)
     ext129 = torch.from_numpy(_extreme_qkv(129, 3, 64, seed=4)).to(dev, torch.bfloat16)
     compare("logits +-1e4 bf16 T=129 D=64", ext129, 1.0, 5e-2)
+    # every head width has a body: bf16 widths round up to the wgmma depth
+    # of 16 (16 as one 16-column block, 48 three, 80 five, 96 three of 32,
+    # 112 seven of 16, 128 two of 64), f32 ones pad to 32, 64 or 128; a
+    # scale that is no power of two; held beside the f64 plain version too
+    for hd in (16, 48, 80, 96, 112, 128):
+        for t_len in (37, 129, 785):
+            compare(f"bf16 T={t_len} D={hd}", qkv_of((2, t_len, 3, 3, hd), torch.bfloat16, 400 + hd + t_len),
+                    hd**-0.5, 3e-2, exact=True)
+        compare(f"f32 T=129 D={hd}", qkv_of((2, 129, 3, 3, hd), torch.float32, 500 + hd), hd**-0.5, 2e-5)
+    # D = 36 from a view of a 40-wide projection (aligned: the last 16-byte
+    # chunk of each row is read half and zero-filled, and written half)
+    wide = qkv_of((2, 129, 3, 4, 40), torch.bfloat16, 600)
+    compare("bf16 T=129 D=36 narrow view", wide[..., :36], 36**-0.5, 3e-2, exact=True)
+    compare("bf16 T=785 D=20", qkv_of((2, 785, 3, 3, 24), torch.bfloat16, 602)[..., :20], 20**-0.5, 3e-2,
+            exact=True)
+    compare("f32 T=37 D=20", qkv_of((2, 37, 3, 3, 20), torch.float32, 601), 20**-0.5, 2e-5)
+    tiny_fast_math()
     const = qkv_of((1, 37, 3, 2, 64), torch.float32, 5)
     const[:, :, 2] = 3.25
     got = attn.head_resident_attention_packed(const, scale=0.25)
@@ -424,9 +490,28 @@ def window_attention_phase() -> dict:
     import torch
 
     from kobato_eyes_tpu_torch.ops import window_attention as wa
+    from kobato_eyes_tpu_torch.ops import xla_math
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+
+    # XLA's CPU rsqrt on the card (the estimate table read from this host's
+    # rsqrtps, xla_rsqrt.cuh, which both window bodies include): the CUDA
+    # pass bit for bit against the plain version on 2^24 random f32 bit
+    # patterns and every binade's edges, specials included
+    gen = torch.Generator(device=dev).manual_seed(31)
+    bits = torch.randint(-2**31, 2**31, (1 << 24,), generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
+    edges = torch.tensor([0, 1, 2, 8191, 8192, 1 << 22, (1 << 23) - 1], dtype=torch.int32, device=dev)
+    exps = torch.arange(256, dtype=torch.int32, device=dev) << 23
+    binades = (exps[:, None] | edges[None]).flatten()
+    bits = torch.cat([bits, binades, binades | (-2**31)])
+    x = bits.view(torch.float32)
+    got, want = xla_math.xla_rsqrt_f32(x), xla_math.rsqrt_plain(x)
+    apart = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    print(f"xla rsqrt on the card: {apart} of {x.numel()} f32 inputs apart from the plain version "
+          f"(estimate table from the host's rsqrtps)")
+    check(apart == 0, f"xla rsqrt: {apart} inputs apart")
+    del bits, x, got, want
 
     def compare(name, qkv, scale, bias, mask, tol, qk_precision="default", variant=None):
         got = wa.windowed_cosine_attention_packed(qkv, scale, bias, mask, qk_precision=qk_precision)
@@ -1036,15 +1121,19 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
     at ViT-B/448 (T 785, H 12, D 64) the forward at B = 32 and B = 1 and the
     forward and backward at the train step's B = 16, in bf16 and f32; D = 48
     and D = 32 at T = 37 and 129 from packed strided views of a larger
-    projection and from views one element off alignment (which these bodies
-    take: they read one element at a time). f32: ``o`` within 2e-5, ``m`` and
+    projection (the bf16 backward's ``"wgmma"``), from views whose head
+    stride is not a multiple of 8 and from views one element off alignment
+    (the ``"fma"`` bodies, which read one element at a time); D = 8 and
+    every multiple of 16 up to 128 at T = 37 and 129 packed, where each bf16 backward that chooses
+    ``"wgmma"`` holds the ``"fma"`` body too. f32: ``o`` within 2e-5, ``m`` and
     ``l`` within 1e-6 of the largest, each gradient within 1e-5 of its
     largest. bf16: ``o`` and each gradient no further from the f64 plain
     version than twice the bf16 plain version is, plus one bf16 ulp of the
     largest value. Then each kernel's time through a CUDA graph, the least
     of three readings taken in turns with SDPA's forward or its backward
-    through autograd, beside the bound and the plain version's time. Returns
-    the three kernels' entries."""
+    through autograd (the backward's two bodies and SDPA's backward in turns,
+    with TFLOP/s), beside the bound and the plain version's time. Returns
+    the three kernels' entries (the backward's: the ``"wgmma"`` body's)."""
     import torch
     import torch.nn.functional as F
 
@@ -1079,9 +1168,12 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
         check(err <= bar, f"flash {name}: {err} > {bar}")
         return err
 
-    def hold(name, qkv, scale, backward):
+    def hold(name, qkv, scale, backward, expect=None):
         """The kernels on ``qkv`` against the plain versions; returns the
-        forward's error and (with ``backward``) each gradient's."""
+        forward's error and (with ``backward``) each gradient's through the
+        body the wrapper chooses (``expect``, where given), which
+        ``flash_backward`` runs. A bf16 call that chooses ``"wgmma"`` holds
+        the ``"fma"`` body at the same inputs too."""
         b, t, _, h, d = qkv.shape
         q, k, v = qkv.unbind(dim=2)
         o, m, l = fa.flash_forward(qkv, scale)
@@ -1105,17 +1197,35 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
             print(f"flash {tag} o: max |kernel - plain| {errs[0]:.3e} (tol 2e-5)")
             check(errs[0] <= 2e-5, f"flash {tag} o: {errs[0]} > 2e-5")
         if backward:
-            do = randn((b, t, h, d), qkv.dtype)
-            grad = fa.flash_backward(qkv, o, m, l, do, scale)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(grad).all()), f"flash {tag}: non-finite gradient")
+            # dO laid out as qkv's heads are (a narrow view of a wider row where qkv is one)
+            do = randn((b, t, h, qkv.stride(-2)), qkv.dtype)[..., :d]
+            ran = fa.backward_variant(qkv.dtype, d, aligned=fa.aligned_for_wgmma(q, k, v, do))
+            check(expect is None or ran == expect, f"flash {tag}: the backward chose {ran}, not {expect}")
             if bf16:
                 plain = fa.flash_backward_plain(q, k, v, po, pm, pl, do, scale)
                 exact = fa.flash_backward_plain(q64, k64, v64, eo, em, el, do.double(), scale)
-                errs += [held(f"{tag} d{x}", grad[:, :, i], plain[i], exact[i]) for i, x in enumerate("qkv")]
             else:
                 plain = fa.flash_backward_plain(q, k, v, o, m, l, do, scale)
-                errs += [close(f"{tag} d{x}", grad[:, :, i], plain[i], 1e-5) for i, x in enumerate("qkv")]
+            for body in [ran] + (["fma"] if ran == "wgmma" else []):
+                before = dict(fa.backward_variant_launches)
+                if body == ran:  # the public entry, which chooses
+                    grad = fa.flash_backward(qkv, o, m, l, do, scale)
+                else:
+                    grad = torch.empty_like(qkv)
+                    di = fa.row_dot(o, do)
+                    fa.flash_backward_dkv(qkv, do, m, l, di, grad, scale, variant=body)
+                    fa.flash_backward_dq(qkv, do, m, l, di, grad, scale, variant=body)
+                torch.cuda.synchronize()
+                check(all(fa.backward_variant_launches[key, body] == before[key, body] + 1 for key in ("dkv", "dq")),
+                      f"flash {tag}: the backward did not run {body}")
+                btag = f"{tag} backward [{body}]"
+                check(bool(torch.isfinite(grad).all()), f"flash {btag}: non-finite gradient")
+                if bf16:
+                    got = [held(f"{btag} d{x}", grad[:, :, i], plain[i], exact[i]) for i, x in enumerate("qkv")]
+                else:
+                    got = [close(f"{btag} d{x}", grad[:, :, i], plain[i], 1e-5) for i, x in enumerate("qkv")]
+                if body == ran:
+                    errs += got
         return errs
 
     b, t, h, d = VIT_B448["batch"], VIT_B448["tokens"], VIT_B448["heads"], VIT_B448["head_dim"]
@@ -1126,19 +1236,33 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
     train = {dt: randn((tb, t, 3, h, d), dt) for dt in (torch.bfloat16, torch.float32)}
     errs = {}
     for dt in (torch.bfloat16, torch.float32):
+        body = "wgmma" if dt == torch.bfloat16 else "fma"
         errs[("fwd", dt)] = hold("vit-b448", main[dt], scale, backward=False)[0]
         hold("vit-b448", one[dt], scale, backward=False)
-        errs[("train", dt)] = hold("vit-b448 train", train[dt], scale, backward=True)
+        errs[("train", dt)] = hold("vit-b448 train", train[dt], scale, backward=True, expect=body)
+        # every D16 of the wgmma bodies (64-, 32- and 16-column blocks: 48 is
+        # three of 16, 80 five, 96 three of 32, 112 seven of 16, 128 two of
+        # 64; above 64 a 2-stage ring and one block an SM) and 8, zero-padded
+        # to 16, around the 64-row tiles
+        for hd in (8, 16, 32, 48, 64, 80, 96, 112, 128):
+            for t_len in (37, 129):
+                hold("packed", randn((2, t_len, 3, 4, hd), dt), hd**-0.5, backward=True, expect=body)
+        # D = 36 from a view of a 40-wide projection: aligned, so bf16 takes
+        # "wgmma" with the last 16-byte chunk of each row read half and zero-filled
+        hold("narrow aligned view", randn((2, 129, 3, 4, 40), dt)[..., :36], 36**-0.5, backward=True, expect=body)
     for dt in (torch.bfloat16, torch.float32):
         for hd in (48, 32):
             for t_len in (37, 129):
                 big = randn((3, t_len + 7, 3, 4, hd), dt)  # a strided slice: batch and token strides of the big one
-                hold("strided slice", big[1:, 3:3 + t_len], hd**-0.5, backward=True)
+                hold("strided slice", big[1:, 3:3 + t_len], hd**-0.5, backward=True,
+                     expect="wgmma" if dt == torch.bfloat16 else "fma")
+                wide = randn((2, t_len, 3, 4, hd + 4), dt)  # head stride hd + 4: not a multiple of 8
+                hold("narrow view", wide[..., :hd], hd**-0.5, backward=True, expect="fma")
                 n = 2 * t_len * 3 * 2 * hd
                 flat = randn((n + 1,), dt)  # one element off: 2 (bf16) or 4 (f32) bytes off 16-byte alignment
                 view = flat[1:].view(2, t_len, 3, 2, hd)
                 check(view.data_ptr() % 16 != 0, "flash: the misaligned view is aligned")
-                hold("misaligned view", view, hd**-0.5, backward=True)
+                hold("misaligned view", view, hd**-0.5, backward=True, expect="fma")
     # the f32 kernels once each (the same bodies; the bound is the f32 rate's)
     f32_qkv = train[torch.float32]
     o, m, l = fa.flash_forward(f32_qkv, scale)
@@ -1169,7 +1293,7 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
         return torch.autograd.grad(F.scaled_dot_product_attention(sq, sk, sv, scale=scale), (sq, sk, sv), sdo)
 
     readings = {key: [] for key in ("fwd32", "sdpa32", "fwd1", "sdpa1", "fwd16", "sdpa16", "dkv", "dq",
-                                    "sdpa_both")}
+                                    "dkv_fma", "dq_fma", "sdpa_both")}
     for _ in range(FLASH_READINGS):
         readings["fwd32"].append(cuda_graph_ms([lambda: fa.flash_forward(main[torch.bfloat16], scale)] * 2))
         readings["sdpa32"].append(cuda_graph_ms(
@@ -1180,10 +1304,11 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
         readings["fwd16"].append(cuda_graph_ms([lambda: fa.flash_forward(qkv16, scale)] * 2))
         readings["sdpa16"].append(cuda_graph_ms(
             [lambda: F.scaled_dot_product_attention(sq, sk, sv, scale=scale)] * 8))
-        readings["dkv"].append(cuda_graph_ms(
-            [lambda: fa.flash_backward_dkv(qkv16, do16, m16, l16, di16, grad16, scale)] * 2))
-        readings["dq"].append(cuda_graph_ms(
-            [lambda: fa.flash_backward_dq(qkv16, do16, m16, l16, di16, grad16, scale)] * 2))
+        for body, suffix in (("wgmma", ""), ("fma", "_fma")):
+            readings["dkv" + suffix].append(cuda_graph_ms(
+                [lambda: fa.flash_backward_dkv(qkv16, do16, m16, l16, di16, grad16, scale, variant=body)] * 2))
+            readings["dq" + suffix].append(cuda_graph_ms(
+                [lambda: fa.flash_backward_dq(qkv16, do16, m16, l16, di16, grad16, scale, variant=body)] * 2))
         readings["sdpa_both"].append(cuda_graph_ms([sdpa_both] * 4))
     best = {key: min(v) for key, v in readings.items()}
     # SDPA's backward: its forward and backward less its forward, least against least
@@ -1215,6 +1340,18 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
     dkv_bound, dkv_by = bound(_flash_products(tb, t, h, d, 4), bwd_in + tb * t * h * 2 * d * elt)
     dq_bound, dq_by = bound(_flash_products(tb, t, h, d, 3), bwd_in + tb * t * h * d * elt)
     five, seven = (_flash_products(tb, t, h, d, n) for n in (5, 7))
+    four, three = _flash_products(tb, t, h, d, 4), _flash_products(tb, t, h, d, 3)
+
+    def rate(flops, key):
+        return f"{flops / (best[key] * 1e-3) / 1e12:.1f} TFLOP/s"
+
+    for body, suffix in (("wgmma", ""), ("fma", "_fma")):
+        lines.append(f"bf16 backward [{body}] B={tb} readings: dK/dV "
+                     f"{' / '.join(f'{r:.4f}' for r in readings['dkv' + suffix])} ms, dQ "
+                     f"{' / '.join(f'{r:.4f}' for r in readings['dq' + suffix])} ms; least {best['dkv' + suffix]:.4f} "
+                     f"({rate(four, 'dkv' + suffix)}) + {best['dq' + suffix]:.4f} ({rate(three, 'dq' + suffix)}) = "
+                     f"{best['dkv' + suffix] + best['dq' + suffix]:.4f} ms, "
+                     f"{(best['dkv' + suffix] + best['dq' + suffix]) / best['sdpa_bwd']:.2f}x sdpa's backward")
     lines.append(f"bf16 backward B={tb}: dK/dV kernel {best['dkv']:.4f} ms (bound {dkv_bound:.4f} ms, 4 products), "
                  f"dQ kernel {best['dq']:.4f} ms (bound {dq_bound:.4f} ms, 3 products), together "
                  f"{best['dkv'] + best['dq']:.4f} ms; sdpa backward {best['sdpa_bwd']:.4f} ms (forward and backward "
@@ -3382,8 +3519,9 @@ def flash_train_phase() -> tuple[int, int, int]:
     each tensor's step-1 gradient no further (max |dg| / max |g|) from an
     f32 einsum step's than twice the bf16 einsum step's worst tensor is,
     and within 3e-2 of the bf16 einsum step's; exactly 12 forward, 12 dK/dV
-    and 12 dQ launches a step. Then both steps' ms (CUDA events, warm, mean
-    of 5) and peak memory. Returns the three kernels' launches."""
+    and 12 dQ launches a step, every backward launch the ``"wgmma"`` body.
+    Then both steps' ms (CUDA events, warm, mean of 5) and peak memory.
+    Returns the three kernels' launches."""
     import numpy as np
     import torch
 
@@ -3417,14 +3555,18 @@ def flash_train_phase() -> tuple[int, int, int]:
     torch.cuda.empty_cache()
 
     fa.launches = fa.backward_dkv_launches = fa.backward_dq_launches = 0
+    fa.backward_variant_launches = dict.fromkeys(fa.backward_variant_launches, 0)
     losses, grads = [], None
     for x, y in batches:
         losses.append(float(flash(x, y)))
         if grads is None:
             grads = {k: p.grad.float().clone() for k, p in flash.model.named_parameters()}
     counts = (fa.launches, fa.backward_dkv_launches, fa.backward_dq_launches)
+    by_variant = dict(fa.backward_variant_launches)
     expect = FLASH_TRAIN_STEPS * fcfg.depth
     check(counts == (expect,) * 3, f"flash train: launches (forward, dK/dV, dQ) {counts} != {expect} each")
+    check(by_variant == {("dkv", "wgmma"): expect, ("dq", "wgmma"): expect, ("dkv", "fma"): 0, ("dq", "fma"): 0},
+          f"flash train: the backward's bodies {by_variant}, not {expect} \"wgmma\" launches of each kernel")
     one_losses, one_grads = [], None
     for x, y in batches:
         one_losses.append(float(einsum(x, y)))
@@ -3453,7 +3595,7 @@ def flash_train_phase() -> tuple[int, int, int]:
           f"{' '.join(f'{v:.6f}' for v in one_losses)} (max rel {rel:.3e}, tol 1e-3); step-1 gradient norm ratio "
           f"{min(ratios.values()):.5f}..{max(ratios.values()):.5f} (worst {worst_ratio}), max |dg| / max |g| "
           f"{dg[worst_dg]:.3e} ({worst_dg}, tol 3e-2); launches a step: forward {counts[0] // FLASH_TRAIN_STEPS}, "
-          f"dK/dV {counts[1] // FLASH_TRAIN_STEPS}, dQ {counts[2] // FLASH_TRAIN_STEPS}")
+          f"dK/dV {counts[1] // FLASH_TRAIN_STEPS}, dQ {counts[2] // FLASH_TRAIN_STEPS} (bodies {by_variant})")
     check(rel <= 1e-3, f"flash train: losses {rel} apart from the einsum step (relative)")
     check(all(0.99 <= v <= 1.01 for v in ratios.values()),
           f"flash train: gradient norm ratio {ratios[worst_ratio]} ({worst_ratio})")

@@ -32,17 +32,30 @@
 // atomics are needed: the dK/dV kernel sums over the q rows inside the
 // block, the dQ kernel over the keys.
 //
-// This is the simple first design: every product is f32 FMAs out of shared
-// memory, for float32 (tensor cores would mean TF32, which the port does not
-// use) and for bfloat16 alike (bf16 values widen to f32 exactly as they are
+// Two designs. "fma" (the forward, and the backward for float32 and for
+// views the other cannot copy): every product f32 FMAs out of shared memory,
+// for float32 (tensor cores would mean TF32, which the port does not use)
+// and for bfloat16 alike (bf16 values widen to f32 exactly as they are
 // loaded; bf16 products are exact in f32). 256 threads a block; thread
 // (tr, tc) = (tid / 16, tid % 16) owns rows tr + 16 i (i < 4) and columns
 // tc + 16 j of each 64 x 64 tile, so a row's 64 columns sit on the 16
 // lanes of one half-warp and its max and sum reduce by shuffles. The head
 // width is padded to DP = 32, 64 or 128 with zeros (D = 48 runs as 64).
 // q, k, v and dO are read one element at a time through their strides, so
-// any view with a unit last stride is taken, aligned or not. The tensor-core
-// redesign (wgmma) is later work.
+// any view with a unit last stride is taken, aligned or not. Two shared
+// loads feed four FMAs: the backward ran at ~20 TFLOP/s this way.
+//
+// "wgmma" (the backward for bfloat16 whose q, k, v and dO rows are 16-byte
+// aligned with strides that are multiples of 8: the ViT's packed
+// projection): one warpgroup a block, every product a wgmma with f32
+// accumulation out of swizzled shared memory (wgmma.cuh), S and dP in
+// registers, P and dS formed there with the same arithmetic and rounded to
+// bf16 as the register A operand of the next product, so neither touches
+// shared memory. dK/dV owns 64 keys (K, V staged once) and streams the q
+// tiles, with their dO, m, 1 / l and di, through a cp.async ring; dK and dV
+// stay in registers over the whole loop. dQ owns 64 q rows (Q, dO staged
+// once) and streams the K, V tiles. The head width is rounded up to 16, the
+// wgmma depth (the columns past d are zeros in shared memory).
 //
 // The scaling is __fmul_rn, so that the compiler cannot fuse it into the
 // subtraction of m that follows: JAX rounds the scaled logits first.
@@ -52,10 +65,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kTile = 64;      // q rows or keys of a tile
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 entries of a tile each
@@ -473,6 +487,338 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // ---------------------------------------------------------------------------
+// Backward on the tensor cores ("wgmma", bfloat16): one warpgroup a block
+// ---------------------------------------------------------------------------
+//
+// The same functions as the two kernels above, with every product a wgmma
+// (bf16 operands, f32 accumulation) out of swizzled shared memory
+// (wgmma.cuh) and the elementwise steps on the accumulator fragments in
+// registers. D16 is the head width rounded up to 16, the wgmma depth;
+// columns d .. D16 - 1 are zero-filled in shared memory, which leaves every
+// product over D as it is, and output columns past d are not written. q, k,
+// v and dO are copied 16 bytes at a time (rows 16-byte aligned, strides
+// multiples of 8), through a ring of STAGES tiles.
+
+constexpr int kWgThreads = 128;
+
+// m, l and di of rows r0 .. r0 + 63 of one (batch, head) into [64] f32
+// arrays, zero past T: thread `tid` < 64 copies row tid's three values
+__device__ __forceinline__ void load_row_params_async(uint32_t m_dst, uint32_t l_dst, uint32_t di_dst,
+                                                      const float* m, const float* l, const float* di,
+                                                      long long ml, int r0, int t_len, int tid) {
+  if (tid >= kTile) return;
+  const bool ok = r0 + tid < t_len;
+  const long long off = ok ? ml + r0 + tid : 0;
+  const int bytes = ok ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" :: "r"(m_dst + 4 * tid), "l"(m + off), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" :: "r"(l_dst + 4 * tid), "l"(l + off), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" :: "r"(di_dst + 4 * tid), "l"(di + off), "r"(bytes)
+               : "memory");
+}
+
+// Writes this warp's 16 rows (16 * warp ..) of a 64 x D16 accumulator
+// fragment, rounded to bf16, into the tile at `tile` (no longer read), then
+// from there to rows r0 + 16 * warp .. of a (T, d) view with row stride
+// `st`: 16 bytes a thread where the view allows it. FULL: d == D16.
+template <int D16, bool FULL>
+__device__ __forceinline__ void store_rows(const float* acc, uint8_t* tile, bf16* dst, int r0, int t_len,
+                                           int d, long long st, bool vec_ok, int warp, int lane) {
+  using L = SwTile<D16, kTile>;
+  const int g = lane >> 2, quad = lane & 3, wrow = 16 * warp;
+#pragma unroll
+  for (int j = 0; j < D16 / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(tile + L::offset(wrow + g, j) + 4 * quad) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(tile + L::offset(wrow + g + 8, j) + 4 * quad) =
+        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * L::kChunks; i += 32) {
+    const int r = wrow + i / L::kChunks, c = i % L::kChunks;
+    if (r0 + r >= t_len || (!FULL && 8 * c >= d)) continue;
+    bf16* out = dst + (long long)(r0 + r) * st + 8 * c;
+    const uint8_t* src = tile + L::offset(r, c);
+    if (vec_ok && d - 8 * c >= 8) {
+      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      const int n = d - 8 * c < 8 ? d - 8 * c : 8;
+      for (int e = 0; e < n; ++e) out[e] = reinterpret_cast<const bf16*>(src)[e];
+    }
+  }
+}
+
+// 16-byte stores into a view: its address and strides allow them
+__device__ __forceinline__ bool vec_view(const void* p, long long sb, long long st, long long sh) {
+  return ((uintptr_t)p & 15) == 0 && ((sb | st | sh) & 7) == 0;
+}
+
+template <int D16>
+__host__ __device__ constexpr int wg_stages() { return D16 <= 64 ? 3 : 2; }
+
+template <int D16>
+constexpr size_t dkv_wgmma_smem_bytes() {
+  // K, V; a ring of (Q, dO) tiles and their rows' m, 1 / l, di; alignment room
+  return (2 + 2 * wg_stages<D16>()) * (size_t)SwTile<D16, kTile>::kBytes +
+         wg_stages<D16>() * 3 * kTile * sizeof(float) + 1024;
+}
+
+// dK/dV: a block owns 64 keys of one (batch, head) and walks over the q
+// tiles. S^T = K Q^T and dP^T = V dO^T (a warp owns 16 keys, its lanes the
+// fragment's q columns); P^T and dS^T formed in registers and rounded to
+// bf16 as the A fragments of dV += P^T dO and dK += dS^T Q, whose B operands
+// are the dO and Q tiles read MN-major. dK and dV stay in registers over the
+// whole loop. FULL: d == D16, no column is padded (wgmma.cuh).
+// Blocks an SM the register budget must leave room for: three up to D = 64
+// (at most 168 registers a thread; the dK/dV body at 171 ran two blocks an
+// SM and took 0.43 against 0.32 ms at ViT-B/448 B = 16 on an H100), one
+// above.
+template <int D16>
+__host__ __device__ constexpr int wg_min_blocks() { return D16 <= 64 ? 3 : 1; }
+
+template <int D16, bool FULL>
+__global__ void __launch_bounds__(kWgThreads, wg_min_blocks<D16>())
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout, const float* __restrict__ m,
+                           const float* __restrict__ l, const float* __restrict__ di,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int t_len, int heads, int d,
+                           long long in_sb, long long in_st, long long in_sh,
+                           long long do_sb, long long do_st, long long do_sh,
+                           long long g_sb, long long g_st, long long g_sh, float scale) {
+  using L = SwTile<D16, kTile>;
+  constexpr int S = wg_stages<D16>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw_addr & 1023u)) & 1023u;
+  uint8_t* base = smem_raw + pad;
+  const uint32_t ks_addr = raw_addr + pad;
+  const uint32_t vs_addr = ks_addr + L::kBytes;
+  const uint32_t qs_addr = vs_addr + L::kBytes;           // [S] Q tiles
+  const uint32_t dos_addr = qs_addr + S * L::kBytes;      // [S] dO tiles
+  const uint32_t par_addr = dos_addr + S * L::kBytes;     // [S][3][64]: m, 1 / l, di
+  const float* par = reinterpret_cast<const float*>(base + (par_addr - ks_addr));
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, quad = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * kTile;
+  const long long in_base = (long long)b * in_sb + (long long)h * in_sh;
+  const bf16* qb = q + in_base;
+  const bf16* dob = dout + (long long)b * do_sb + (long long)h * do_sh;
+  const long long ml = ((long long)b * heads + h) * t_len;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+
+  auto load_tile = [&](int it) {
+    const int st = it % S, q0 = it * kTile;
+    load_tile_async<D16, kTile, FULL>(qs_addr + st * L::kBytes, qb, q0, t_len, d, in_st, tid, kWgThreads);
+    load_tile_async<D16, kTile, FULL>(dos_addr + st * L::kBytes, dob, q0, t_len, d, do_st, tid, kWgThreads);
+    const uint32_t p = par_addr + st * 3 * kTile * 4;
+    load_row_params_async(p, p + kTile * 4, p + 2 * kTile * 4, m, l, di, ml, q0, t_len, tid);
+  };
+  {
+    const uint32_t dsts[2] = {ks_addr, vs_addr};
+    const bf16* const srcs[2] = {k + in_base, v + in_base};
+    load_tiles_async<D16, kTile, FULL>(dsts, srcs, k0, t_len, d, in_st, tid, kWgThreads);
+  }
+#pragma unroll
+  for (int it = 0; it < S - 1; ++it) {
+    if (it < n_tiles) load_tile(it);
+    cp_async_commit();
+  }
+
+  // this thread's keys (fragment rows); keys past T take no part
+  const bool key0_ok = k0 + 16 * warp + g < t_len, key1_ok = k0 + 16 * warp + g + 8 < t_len;
+  float dk_acc[D16 / 2], dv_acc[D16 / 2];
+#pragma unroll
+  for (int i = 0; i < D16 / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % S;
+    cp_async_wait<S - 2>();  // tile it has landed (this thread's copies)
+    if (tid < kTile) {       // the row whose m, l, di this thread copied: 1 / l in place of l
+      float* lp = reinterpret_cast<float*>(base + (par_addr - ks_addr)) + st * 3 * kTile + kTile + tid;
+      *lp = it * kTile + tid < t_len ? 1.f / *lp : 0.f;
+    }
+    fence_proxy_async();
+    // every thread's copies of tile it are visible, and every warp is done
+    // with tile it - 1, whose stage the copies of tile it + S - 1 refill
+    __syncthreads();
+    if (it + S - 1 < n_tiles) load_tile(it + S - 1);
+    cp_async_commit();
+
+    const uint64_t q_desc = L::desc(qs_addr + st * L::kBytes), do_desc = L::desc(dos_addr + st * L::kBytes);
+    const uint64_t k_desc = L::desc(ks_addr), v_desc = L::desc(vs_addr);  // made here: fewer live registers
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D16 / 16; ++kk) {
+      wgmma_ss_n64(s, k_desc + L::kmajor(kk), q_desc + L::kmajor(kk), kk > 0);
+      wgmma_ss_n64(dp, v_desc + L::kmajor(kk), do_desc + L::kmajor(kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+
+    // P^T and dS^T: fragment column c = 8j + 2 quad + e is q row it * 64 + c
+    const float* pm = par + st * 3 * kTile;
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * quad;
+      const float2 mc = *reinterpret_cast<const float2*>(pm + c);
+      const float2 lc = *reinterpret_cast<const float2*>(pm + kTile + c);
+      const float2 dc = *reinterpret_cast<const float2*>(pm + 2 * kTile + c);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = e < 2 ? key0_ok : key1_ok;
+        const float mv = e & 1 ? mc.y : mc.x, lv = e & 1 ? lc.y : lc.x, dv_ = e & 1 ? dc.y : dc.x;
+        p[e] = ok ? expf(__fmul_rn(s[4 * j + e], scale) - mv) * lv : 0.f;
+        ds[e] = ((dp[4 * j + e] - dv_) * p[e]) * scale;
+      }
+      pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      dsa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q: 16 q rows a step
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wgmma_rs_tile<D16, kTile>(dv_acc, pa[kk], do_desc, kk);
+      wgmma_rs_tile<D16, kTile>(dk_acc, dsa[kk], q_desc, kk);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+  __syncthreads();  // every warp is past its last product: K and V are free
+
+  const long long g_base = (long long)b * g_sb + (long long)h * g_sh;
+  const bool vec_ok = vec_view(dk, g_sb, g_st, g_sh) && vec_view(dv, g_sb, g_st, g_sh);
+  store_rows<D16, FULL>(dk_acc, base, dk + g_base, k0, t_len, d, g_st, vec_ok, warp, lane);
+  store_rows<D16, FULL>(dv_acc, base + L::kBytes, dv + g_base, k0, t_len, d, g_st, vec_ok, warp, lane);
+}
+
+template <int D16>
+constexpr size_t dq_wgmma_smem_bytes() {
+  // Q, dO; a ring of (K, V) tiles; alignment room
+  return (2 + 2 * wg_stages<D16>()) * (size_t)SwTile<D16, kTile>::kBytes + 1024;
+}
+
+// dQ: a block owns 64 q rows of one (batch, head) and walks over the key
+// tiles. S = Q K^T and dP = dO V^T; dS formed in registers and rounded to
+// bf16 as the A fragment of dQ += dS K, whose B operand is the K tile read
+// MN-major. FULL as for dK/dV.
+template <int D16, bool FULL>
+__global__ void __launch_bounds__(kWgThreads, wg_min_blocks<D16>())
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout, const float* __restrict__ m,
+                          const float* __restrict__ l, const float* __restrict__ di,
+                          bf16* __restrict__ dq,
+                          int t_len, int heads, int d,
+                          long long in_sb, long long in_st, long long in_sh,
+                          long long do_sb, long long do_st, long long do_sh,
+                          long long g_sb, long long g_st, long long g_sh, float scale) {
+  using L = SwTile<D16, kTile>;
+  constexpr int S = wg_stages<D16>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw_addr & 1023u)) & 1023u;
+  uint8_t* base = smem_raw + pad;
+  const uint32_t qs_addr = raw_addr + pad;
+  const uint32_t dos_addr = qs_addr + L::kBytes;
+  const uint32_t ks_addr = dos_addr + L::kBytes;      // [S] K tiles
+  const uint32_t vs_addr = ks_addr + S * L::kBytes;   // [S] V tiles
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, quad = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kTile;
+  const long long in_base = (long long)b * in_sb + (long long)h * in_sh;
+  const bf16* kb = k + in_base;
+  const bf16* vb = v + in_base;
+  const long long ml = ((long long)b * heads + h) * t_len;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+
+  auto load_tile = [&](int it) {
+    const int st = it % S;
+    const uint32_t dsts[2] = {ks_addr + st * L::kBytes, vs_addr + st * L::kBytes};
+    const bf16* const srcs[2] = {kb, vb};
+    load_tiles_async<D16, kTile, FULL>(dsts, srcs, it * kTile, t_len, d, in_st, tid, kWgThreads);
+  };
+  load_tile_async<D16, kTile, FULL>(qs_addr, q + in_base, q0, t_len, d, in_st, tid, kWgThreads);
+  load_tile_async<D16, kTile, FULL>(dos_addr, dout + (long long)b * do_sb + (long long)h * do_sh, q0, t_len, d, do_st,
+                              tid, kWgThreads);
+#pragma unroll
+  for (int it = 0; it < S - 1; ++it) {
+    if (it < n_tiles) load_tile(it);
+    cp_async_commit();
+  }
+
+  // this thread's rows g and g + 8 of its warp's 16: m, 1 / l, di (rows past
+  // T take no part)
+  float m_r[2], linv_r[2], di_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + 16 * warp + g + 8 * i;
+    const bool ok = row < t_len;
+    m_r[i] = ok ? m[ml + row] : 0.f;
+    linv_r[i] = ok ? 1.f / l[ml + row] : 0.f;
+    di_r[i] = ok ? di[ml + row] : 0.f;
+  }
+  float dq_acc[D16 / 2];
+#pragma unroll
+  for (int i = 0; i < D16 / 2; ++i) dq_acc[i] = 0.f;
+  const uint64_t q_desc = L::desc(qs_addr), do_desc = L::desc(dos_addr);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % S, c0 = it * kTile;
+    cp_async_wait<S - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if (it + S - 1 < n_tiles) load_tile(it + S - 1);
+    cp_async_commit();
+
+    const uint64_t k_desc = L::desc(ks_addr + st * L::kBytes), v_desc = L::desc(vs_addr + st * L::kBytes);
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D16 / 16; ++kk) {
+      wgmma_ss_n64(s, q_desc + L::kmajor(kk), k_desc + L::kmajor(kk), kk > 0);
+      wgmma_ss_n64(dp, do_desc + L::kmajor(kk), v_desc + L::kmajor(kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+
+    // dS: fragment column c = 8j + 2 quad + e is key c0 + c (past T: p = 0)
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = c0 + 8 * j + 2 * quad + (e & 1) < t_len
+                            ? expf(__fmul_rn(s[4 * j + e], scale) - m_r[i]) * linv_r[i] : 0.f;
+        ds[e] = ((dp[4 * j + e] - di_r[i]) * p) * scale;
+      }
+      dsa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS K: 16 keys a step, K rows are the reduction axis
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs_tile<D16, kTile>(dq_acc, dsa[kk], k_desc, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+  __syncthreads();  // every warp is past its last product: Q is free
+
+  const long long g_base = (long long)b * g_sb + (long long)h * g_sh;
+  store_rows<D16, FULL>(dq_acc, base, dq + g_base, q0, t_len, d, g_st, vec_view(dq, g_sb, g_st, g_sh), warp, lane);
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -545,6 +891,51 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
+template <int D16, bool FULL>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const float* m, const float* l, const float* di, void* dk, void* dv,
+                             Shape sh, const long long* in_s, const long long* do_s,
+                             const long long* g_s, float scale, cudaStream_t stream) {
+  static unsigned configured = 0;
+  constexpr size_t bytes = dkv_wgmma_smem_bytes<D16>();
+  cudaError_t err = allow_smem(flash_bwd_dkv_wgmma_kernel<D16, FULL>, bytes, &configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sh.t_len + kTile - 1) / kTile, sh.heads, sh.batch);
+  flash_bwd_dkv_wgmma_kernel<D16, FULL><<<grid, kWgThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), m, l, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      sh.t_len, sh.heads, sh.d, in_s[0], in_s[1], in_s[2], do_s[0], do_s[1], do_s[2],
+      g_s[0], g_s[1], g_s[2], scale);
+  return cudaGetLastError();
+}
+
+template <int D16, bool FULL>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const float* m, const float* l, const float* di, void* dq,
+                            Shape sh, const long long* in_s, const long long* do_s,
+                            const long long* g_s, float scale, cudaStream_t stream) {
+  static unsigned configured = 0;
+  constexpr size_t bytes = dq_wgmma_smem_bytes<D16>();
+  cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<D16, FULL>, bytes, &configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sh.t_len + kTile - 1) / kTile, sh.heads, sh.batch);
+  flash_bwd_dq_wgmma_kernel<D16, FULL><<<grid, kWgThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), m, l, di, static_cast<bf16*>(dq),
+      sh.t_len, sh.heads, sh.d, in_s[0], in_s[1], in_s[2], do_s[0], do_s[1], do_s[2],
+      g_s[0], g_s[1], g_s[2], scale);
+  return cudaGetLastError();
+}
+
+// what the wgmma bodies copy 16 bytes at a time: q, k, v and dO with
+// 16-byte aligned rows and strides that are multiples of 8
+bool wgmma_aligned(const void* q, const void* k, const void* v, const void* dout,
+                   const long long* in_s, const long long* do_s) {
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout;
+  const long long strides = in_s[0] | in_s[1] | in_s[2] | do_s[0] | do_s[1] | do_s[2];
+  return (ptrs & 15) == 0 && (strides & 7) == 0;
+}
+
 bool shape_ok(Shape sh) {
   return sh.batch > 0 && sh.t_len > 0 && sh.heads > 0 && sh.d > 0 && sh.d <= 128 &&
          sh.batch <= 65535 && sh.heads <= 65535;
@@ -587,10 +978,13 @@ extern "C" int flash_attention_forward(
 
 // dO has its own strides; dk and dv (and dq below) share theirs (`g_*`: the
 // packed (B, T, 3, H, D) gradient of qkv). m, l and di are (B, H, T) f32.
+// variant: 0 = "fma" (float32 or bfloat16, any view with a unit last
+// stride), 1 = "wgmma" (bfloat16, q, k, v and dO 16-byte aligned with
+// strides that are multiples of 8; any head width 1 .. 128).
 extern "C" int flash_attention_backward_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* m, const float* l, const float* di, void* dk, void* dv,
-    int batch, int t_len, int heads, int head_dim, int dtype_code,
+    int batch, int t_len, int heads, int head_dim, int dtype_code, int variant,
     long long in_sb, long long in_st, long long in_sh,
     long long do_sb, long long do_st, long long do_sh,
     long long g_sb, long long g_st, long long g_sh,
@@ -601,6 +995,25 @@ extern "C" int flash_attention_backward_dkv(
   const long long do_s[3] = {do_sb, do_st, do_sh};
   const long long g_s[3] = {g_sb, g_st, g_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype_code != 1) return (int)cudaErrorInvalidValue;
+    if (!wgmma_aligned(q, k, v, dout, in_s, do_s)) return (int)cudaErrorMisalignedAddress;
+#define KET_DKV_WG(D16) \
+  (head_dim == D16 ? launch_dkv_wgmma<D16, true>(q, k, v, dout, m, l, di, dk, dv, sh, in_s, do_s, g_s, scale, s) \
+                   : launch_dkv_wgmma<D16, false>(q, k, v, dout, m, l, di, dk, dv, sh, in_s, do_s, g_s, scale, s))
+    switch ((head_dim + 15) / 16) {
+      case 1: return (int)KET_DKV_WG(16);
+      case 2: return (int)KET_DKV_WG(32);
+      case 3: return (int)KET_DKV_WG(48);
+      case 4: return (int)KET_DKV_WG(64);
+      case 5: return (int)KET_DKV_WG(80);
+      case 6: return (int)KET_DKV_WG(96);
+      case 7: return (int)KET_DKV_WG(112);
+      default: return (int)KET_DKV_WG(128);
+    }
+#undef KET_DKV_WG
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
 #define KET_DKV(T, DP) launch_dkv<T, DP>(q, k, v, dout, m, l, di, dk, dv, sh, in_s, do_s, g_s, scale, s)
   const int dp = padded(head_dim);
   if (dtype_code == 0) {
@@ -620,7 +1033,7 @@ extern "C" int flash_attention_backward_dkv(
 extern "C" int flash_attention_backward_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* m, const float* l, const float* di, void* dq,
-    int batch, int t_len, int heads, int head_dim, int dtype_code,
+    int batch, int t_len, int heads, int head_dim, int dtype_code, int variant,
     long long in_sb, long long in_st, long long in_sh,
     long long do_sb, long long do_st, long long do_sh,
     long long g_sb, long long g_st, long long g_sh,
@@ -631,6 +1044,25 @@ extern "C" int flash_attention_backward_dq(
   const long long do_s[3] = {do_sb, do_st, do_sh};
   const long long g_s[3] = {g_sb, g_st, g_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype_code != 1) return (int)cudaErrorInvalidValue;
+    if (!wgmma_aligned(q, k, v, dout, in_s, do_s)) return (int)cudaErrorMisalignedAddress;
+#define KET_DQ_WG(D16) \
+  (head_dim == D16 ? launch_dq_wgmma<D16, true>(q, k, v, dout, m, l, di, dq, sh, in_s, do_s, g_s, scale, s) \
+                   : launch_dq_wgmma<D16, false>(q, k, v, dout, m, l, di, dq, sh, in_s, do_s, g_s, scale, s))
+    switch ((head_dim + 15) / 16) {
+      case 1: return (int)KET_DQ_WG(16);
+      case 2: return (int)KET_DQ_WG(32);
+      case 3: return (int)KET_DQ_WG(48);
+      case 4: return (int)KET_DQ_WG(64);
+      case 5: return (int)KET_DQ_WG(80);
+      case 6: return (int)KET_DQ_WG(96);
+      case 7: return (int)KET_DQ_WG(112);
+      default: return (int)KET_DQ_WG(128);
+    }
+#undef KET_DQ_WG
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
 #define KET_DQ(T, DP) launch_dq<T, DP>(q, k, v, dout, m, l, di, dq, sh, in_s, do_s, g_s, scale, s)
   const int dp = padded(head_dim);
   if (dtype_code == 0) {

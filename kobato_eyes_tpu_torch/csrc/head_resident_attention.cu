@@ -24,14 +24,17 @@
 //
 // Two kernels, picked by dtype:
 //
-//  * bfloat16 (the main path): attn_wgmma_kernel. A block takes a q tile of
+//  * bfloat16 (the main path): attn_wgmma_kernel, at every head width: the
+//    width rounded up to 16 (the wgmma depth) is a template instance, the
+//    columns past d zero-filled in shared memory (wgmma.cuh lays the tiles
+//    out in 64-, 32- or 16-column swizzled blocks). A block takes a q tile of
 //    128 rows of one (batch, head): two warpgroups of 64 rows that share
 //    every K/V tile (64-row blocks of one warpgroup read K and V twice as
 //    often and were slower at the ViT-B/448 shape); a second warpgroup whose
 //    rows all lie past T leaves at once. K and V
 //    come in 64-key tiles through a three-stage ring in shared memory,
-//    filled by 16-byte cp.async (rows past T zero-filled) in the 128-byte
-//    (D = 64) or 64-byte (D = 32) swizzle that wgmma descriptors read.
+//    filled by 16-byte cp.async (rows past T zero-filled) in the 128-, 64-
+//    or 32-byte swizzle that wgmma descriptors read.
 //    S = Q K^T is wgmma m64n64k16 with both operands from shared memory;
 //    the online softmax runs on the accumulator fragment in registers; P is
 //    rounded to bf16 in registers and is the register A operand of the
@@ -47,7 +50,8 @@
 //
 //  * float32: attn_fma_kernel, f32 FMAs out of shared memory. Tensor cores
 //    would mean TF32 operands, which the port does not use. One block per
-//    64-row q tile, four threads a row.
+//    64-row q tile, four threads a row; the head width padded to 32, 64 or
+//    128 with zeros.
 //
 // Plain C entry for ctypes: returns the cudaError_t of the launch.
 
@@ -55,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -74,11 +80,12 @@ constexpr size_t fma_smem_bytes() {
 
 // Thread layout: row r = tid / 4 of the q tile belongs to a quad of threads;
 // thread lane4 = tid % 4 of the quad owns key columns lane4 + 4j of each
-// tile and output dims lane4 + 4j. The quad's q row lives in registers.
+// tile and output dims lane4 + 4j. The quad's q row lives in registers. D is
+// the head width d padded to 32, 64 or 128 with zero columns.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 attn_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o, int t_len,
+                const float* __restrict__ v, float* __restrict__ o, int t_len, int head_dim,
                 long long in_sb, long long in_st, long long in_sh,
                 long long out_sb, long long out_st, long long out_sh,
                 float scale) {
@@ -103,7 +110,7 @@ attn_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float qr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    const float x = row_ok ? qb[(long long)row * in_st + d] : 0.f;
+    const float x = row_ok && d < head_dim ? qb[(long long)row * in_st + d] : 0.f;
     qr[d] = x * scale;
   }
 
@@ -120,7 +127,7 @@ attn_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int c = i / D;
       const int d = i - c * D;
       float kx = 0.f, vx = 0.f;
-      if (c0 + c < t_len) {
+      if (c0 + c < t_len && d < head_dim) {
         const long long off = (long long)(c0 + c) * in_st + d;
         kx = kb[off];
         vx = vb[off];
@@ -174,13 +181,15 @@ attn_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (row_ok) {
     float* orow = o + (long long)b * out_sb + (long long)h * out_sh + (long long)row * out_st;
 #pragma unroll
-    for (int j = 0; j < kDimsPerThread; ++j) orow[lane4 + 4 * j] = acc[j] / l;
+    for (int j = 0; j < kDimsPerThread; ++j) {
+      if (lane4 + 4 * j < head_dim) orow[lane4 + 4 * j] = acc[j] / l;
+    }
   }
 }
 
 template <int D>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int batch, int t_len, int heads,
+                       int batch, int t_len, int heads, int head_dim,
                        long long in_sb, long long in_st, long long in_sh,
                        long long out_sb, long long out_st, long long out_sh,
                        float scale, cudaStream_t stream) {
@@ -195,7 +204,7 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((t_len + kRows - 1) / kRows, heads, batch);
   attn_fma_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), t_len, in_sb, in_st, in_sh, out_sb, out_st, out_sh, scale);
+      static_cast<float*>(o), t_len, head_dim, in_sb, in_st, in_sh, out_sb, out_st, out_sh, scale);
   return cudaGetLastError();
 }
 
@@ -203,152 +212,40 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
 // bfloat16: wgmma kernel
 // ---------------------------------------------------------------------------
 
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
-
 constexpr int kTileKeys = 64;  // keys per shared-memory tile
 constexpr int kStages = 3;     // K/V ring depth
 constexpr int kWarpgroups = 2;                // 64 q rows each
 constexpr int kQRows = 64 * kWarpgroups;      // q rows a block takes
 constexpr int kNumThreads = 128 * kWarpgroups;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte asynchronous copy; with !valid nothing is read and the 16 bytes
-// are zero-filled
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-// make this thread's shared-memory writes visible to wgmma's operand reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in a tile whose rows are
-// ROW_BYTES long (128 or 64: one swizzle span), stored in the swizzle the
-// descriptor names. The tile's base is 1024-byte aligned.
-template <int ROW_BYTES>
-__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
-  const int x = ROW_BYTES == 128 ? (row & 7) : ((row >> 1) & 3);
-  return (uint32_t)(row * ROW_BYTES + ((chunk ^ x) << 4));
-}
-
-// Shared-memory matrix descriptor of a tile with ROW_BYTES-long rows: eight
-// rows make one swizzle atom, atoms follow each other every 8 * ROW_BYTES
-// (the stride byte offset). The tile is one atom wide, so the leading byte
-// offset is not used. The same fields describe the tile as a K-major
-// operand (Q, K: the row is the reduction axis) and as an MN-major one (V:
-// rows are keys, the reduction axis).
-template <int ROW_BYTES>
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
-  uint64_t d = (uint64_t)((addr & 0x3FFFFu) >> 4);
-  d |= (uint64_t)1 << 16;
-  d |= (uint64_t)((8 * ROW_BYTES) >> 4) << 32;
-  d |= (uint64_t)(ROW_BYTES == 128 ? 1 : 2) << 62;
-  return d;
-}
-
-// S (64 x 64, f32) = or += A (64 x 16, shared) * B^T (64 x 16, shared)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate)
-      : "memory");
-}
-
-// O (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
-      : "memory");
-}
-
-// O (64 x 32, f32) += A (64 x 16, registers) * B (16 x 32, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
-      : "memory");
-}
-
-template <int D>
+template <int D16>
 constexpr size_t wgmma_smem_bytes() {
   // q tile + ring of K and V tiles, and room to align the base to 1024
-  return (size_t)(kQRows + 2 * kStages * kTileKeys) * D * sizeof(bf16) + 1024;
+  return (size_t)SwTile<D16, kQRows>::kBytes + 2 * kStages * SwTile<D16, kTileKeys>::kBytes + 1024;
 }
 
-// Accumulator fragment of a 64-row wgmma tile, per thread: warp w of the
-// warpgroup owns rows 16w .. 16w+15; lane owns rows g = lane / 4 and g + 8;
-// register 4j + e holds row g + 8 * (e / 2), column 8j + 2 * (lane % 4) + e % 2.
-template <int D>
+// D16: the head width rounded up to 16 (columns d .. D16 - 1 are zeros in
+// shared memory; zero columns of q and k leave q k^T as it is, and zero
+// columns of v give output columns that are not written). Fragments as
+// wgmma.cuh says. FULL: d == D16 (no column is padded).
+template <int D16, bool FULL>
 __global__ void __launch_bounds__(kNumThreads)
 attn_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int t_len,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, int t_len, int d,
                   long long in_sb, long long in_st, long long in_sh,
                   long long out_sb, long long out_st, long long out_sh,
                   float scale) {
-  constexpr int kRowBytes = D * (int)sizeof(bf16);
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  constexpr int kTileBytes = kTileKeys * kRowBytes;
+  using QL = SwTile<D16, kQRows>;
+  using KL = SwTile<D16, kTileKeys>;
+  constexpr int kChunks = QL::kChunks;
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = smem_u32(smem_raw);
   const uint32_t pad = (1024u - (raw_addr & 1023u)) & 1023u;
-  uint8_t* qs = smem_raw + pad;               // [kQRows][D]
+  uint8_t* qs = smem_raw + pad;               // [kQRows][D16]
   const uint32_t qs_addr = raw_addr + pad;
-  const uint32_t ks_addr = qs_addr + kQRows * kRowBytes;   // [kStages][kTileKeys][D]
-  const uint32_t vs_addr = ks_addr + kStages * kTileBytes;  // [kStages][kTileKeys][D]
+  const uint32_t ks_addr = qs_addr + QL::kBytes;              // [kStages][kTileKeys][D16]
+  const uint32_t vs_addr = ks_addr + kStages * KL::kBytes;    // [kStages][kTileKeys][D16]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -374,22 +271,11 @@ attn_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + in_base;
 
   // q tile and key tile 0
-  for (int i = tid; i < kQRows * kChunks; i += n_threads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = q0 + r < t_len;
-    cp_async_16(qs_addr + swizzled<kRowBytes>(r, c),
-                qb + (long long)(ok ? q0 + r : 0) * in_st + c * 8, ok);
-  }
+  load_tile_async<D16, kQRows, FULL>(qs_addr, qb, q0, t_len, d, in_st, tid, n_threads);
   auto load_kv = [&](int tile, int stage) {
-    const int c0 = tile * kTileKeys;
-    for (int i = tid; i < kTileKeys * kChunks; i += n_threads) {
-      const int r = i / kChunks, c = i % kChunks;
-      const bool ok = c0 + r < t_len;
-      const long long off = (long long)(ok ? c0 + r : 0) * in_st + c * 8;
-      const uint32_t dst = stage * kTileBytes + swizzled<kRowBytes>(r, c);
-      cp_async_16(ks_addr + dst, kb + off, ok);
-      cp_async_16(vs_addr + dst, vb + off, ok);
-    }
+    const uint32_t dsts[2] = {ks_addr + stage * KL::kBytes, vs_addr + stage * KL::kBytes};
+    const bf16* const srcs[2] = {kb, vb};
+    load_tiles_async<D16, kTileKeys, FULL>(dsts, srcs, tile * kTileKeys, t_len, d, in_st, tid, n_threads);
   };
   const int n_tiles = (t_len + kTileKeys - 1) / kTileKeys;
   load_kv(0, 0);
@@ -409,29 +295,28 @@ attn_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float2 f = __bfloat1622float2(*reinterpret_cast<bf162*>(&w[e]));
-      bf162 y = __floats2bfloat162_rn(f.x * scale_t, f.y * scale_t);
-      w[e] = *reinterpret_cast<uint32_t*>(&y);
+      w[e] = pack_bf16(f.x * scale_t, f.y * scale_t);
     }
     *p = x;
   }
   fence_proxy_async();
   block_barrier();
 
-  float o_acc[D / 2];
+  float o_acc[D16 / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  for (int i = 0; i < D16 / 2; ++i) o_acc[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's share of their sums
 
-  const uint64_t q_desc = make_desc<kRowBytes>(qs_addr + wg * 64 * kRowBytes);
+  const uint64_t q_desc = QL::desc(qs_addr + wg * 64 * QL::kRowBytes);
 
   // S = Q K^T of key tile `stage`'s keys into s
   float s[32];
   auto start_s = [&](int stage) {
-    const uint64_t k_desc = make_desc<kRowBytes>(ks_addr + stage * kTileBytes);
+    const uint64_t k_desc = KL::desc(ks_addr + stage * KL::kBytes);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+    for (int kk = 0; kk < D16 / 16; ++kk)
+      wgmma_ss_n64(s, q_desc + QL::kmajor(kk), k_desc + KL::kmajor(kk), kk > 0);
   };
   wgmma_fence();
   start_s(0);
@@ -490,7 +375,7 @@ attn_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // lane of the warp needs it
     if (__any_sync(0xffffffffu, a0 != 1.f || a1 != 1.f)) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < D16 / 8; ++j) {
         o_acc[4 * j] *= a0;
         o_acc[4 * j + 1] *= a0;
         o_acc[4 * j + 2] *= a1;
@@ -507,12 +392,11 @@ attn_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
 
     // S(it + 1), and O += P V: 16 keys a step, V rows are the reduction axis
-    const uint64_t v_desc = make_desc<kRowBytes>(vs_addr + stage * kTileBytes);
+    const uint64_t v_desc = KL::desc(vs_addr + stage * KL::kBytes);
     wgmma_fence();
     if (it + 1 < n_tiles) start_s(stage_next);
 #pragma unroll
-    for (int kk = 0; kk < kTileKeys / 16; ++kk)
-      wgmma_rs(o_acc, pa[kk], v_desc + kk * ((16 * kRowBytes) >> 4));
+    for (int kk = 0; kk < kTileKeys / 16; ++kk) wgmma_rs_tile<D16, kTileKeys>(o_acc, pa[kk], v_desc, kk);
     wgmma_commit();
     wgmma_wait_all();
     stage = stage_next;
@@ -528,69 +412,99 @@ attn_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // read: every warp is past the last product) and leave 16 bytes a thread
   const int wrow = 16 * warp;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    bf162 y0 = __floats2bfloat162_rn(o_acc[4 * j] / l0, o_acc[4 * j + 1] / l0);
-    bf162 y1 = __floats2bfloat162_rn(o_acc[4 * j + 2] / l1, o_acc[4 * j + 3] / l1);
-    *reinterpret_cast<bf162*>(qs + swizzled<kRowBytes>(wrow + g, j) + 4 * quad) = y0;
-    *reinterpret_cast<bf162*>(qs + swizzled<kRowBytes>(wrow + g + 8, j) + 4 * quad) = y1;
+  for (int j = 0; j < D16 / 8; ++j) {
+    const uint32_t y0 = pack_bf16(o_acc[4 * j] / l0, o_acc[4 * j + 1] / l0);
+    const uint32_t y1 = pack_bf16(o_acc[4 * j + 2] / l1, o_acc[4 * j + 3] / l1);
+    *reinterpret_cast<uint32_t*>(qs + QL::offset(wrow + g, j) + 4 * quad) = y0;
+    *reinterpret_cast<uint32_t*>(qs + QL::offset(wrow + g + 8, j) + 4 * quad) = y1;
   }
   __syncwarp();
   bf16* ob = o + (long long)b * out_sb + (long long)h * out_sh;
+  // 16-byte stores where the output view allows them (a head width that is
+  // not a multiple of 8 gives rows that are not 16-byte aligned)
+  const bool vec_ok = ((uintptr_t)o & 15) == 0 && ((out_sb | out_st | out_sh) & 7) == 0;
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = wrow + i / kChunks, c = i % kChunks;
-    if (q0 + r < t_len) {
-      *reinterpret_cast<uint4*>(ob + (long long)(q0 + r) * out_st + c * 8) =
-          *reinterpret_cast<const uint4*>(qs + swizzled<kRowBytes>(r, c));
+    if (q0 + r >= t_len || (!FULL && 8 * c >= d)) continue;
+    bf16* dst = ob + (long long)(q0 + r) * out_st + c * 8;
+    const uint8_t* src = qs + QL::offset(r, c);
+    if (vec_ok && d - 8 * c >= 8) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      const int n = d - 8 * c < 8 ? d - 8 * c : 8;
+      for (int e = 0; e < n; ++e) dst[e] = reinterpret_cast<const bf16*>(src)[e];
     }
   }
 }
 
-template <int D>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int batch, int t_len, int heads,
-                         long long in_sb, long long in_st, long long in_sh,
-                         long long out_sb, long long out_st, long long out_sh,
-                         float scale, cudaStream_t stream) {
-  constexpr size_t bytes = wgmma_smem_bytes<D>();
+template <int D16, bool FULL>
+cudaError_t launch_wgmma_body(const void* q, const void* k, const void* v, void* o,
+                              int batch, int t_len, int heads, int d,
+                              long long in_sb, long long in_st, long long in_sh,
+                              long long out_sb, long long out_st, long long out_sh,
+                              float scale, cudaStream_t stream) {
+  constexpr size_t bytes = wgmma_smem_bytes<D16>();
   static bool configured = false;  // the attribute is per kernel, set once
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        attn_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        attn_wgmma_kernel<D16, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((t_len + kQRows - 1) / kQRows, heads, batch);
-  attn_wgmma_kernel<D><<<grid, kNumThreads, bytes, stream>>>(
+  attn_wgmma_kernel<D16, FULL><<<grid, kNumThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), t_len, in_sb, in_st, in_sh, out_sb, out_st, out_sh, scale);
+      static_cast<bf16*>(o), t_len, d, in_sb, in_st, in_sh, out_sb, out_st, out_sh, scale);
   return cudaGetLastError();
+}
+
+template <int D16>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         int batch, int t_len, int heads, int d,
+                         long long in_sb, long long in_st, long long in_sh,
+                         long long out_sb, long long out_st, long long out_sh,
+                         float scale, cudaStream_t stream) {
+  auto launch = d == D16 ? launch_wgmma_body<D16, true> : launch_wgmma_body<D16, false>;
+  return launch(q, k, v, o, batch, t_len, heads, d, in_sb, in_st, in_sh, out_sb, out_st, out_sh, scale, stream);
 }
 
 }  // namespace
 
-// dtype_code: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel).
-// Strides are in elements; the last (head_dim) stride is 1 for every tensor.
-// q, k and v share their strides. bfloat16 tensors are read and written 16
-// bytes at a time: pointers 16-byte aligned, strides multiples of 8.
+// dtype_code: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); head_dim
+// 1 .. 128. Strides are in elements; the last (head_dim) stride is 1 for
+// every tensor. q, k and v share their strides. bfloat16 q, k and v are read
+// 16 bytes at a time: pointers 16-byte aligned, strides multiples of 8; the
+// output is written so where its view allows it.
 extern "C" int head_resident_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     int batch, int t_len, int heads, int head_dim, int dtype_code,
     long long in_sb, long long in_st, long long in_sh,
     long long out_sb, long long out_st, long long out_sh,
     float scale, void* stream) {
-  if (batch <= 0 || t_len <= 0 || heads <= 0 || batch > 65535 || heads > 65535)
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || head_dim <= 0 ||
+      head_dim > 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define KET_ATTN_ARGS \
-  q, k, v, o, batch, t_len, heads, in_sb, in_st, in_sh, out_sb, out_st, out_sh, scale, s
-  if (dtype_code == 0 && head_dim == 64) return (int)launch_fma<64>(KET_ATTN_ARGS);
-  if (dtype_code == 0 && head_dim == 32) return (int)launch_fma<32>(KET_ATTN_ARGS);
+  q, k, v, o, batch, t_len, heads, head_dim, in_sb, in_st, in_sh, out_sb, out_st, out_sh, scale, s
+  if (dtype_code == 0) {
+    if (head_dim <= 32) return (int)launch_fma<32>(KET_ATTN_ARGS);
+    if (head_dim <= 64) return (int)launch_fma<64>(KET_ATTN_ARGS);
+    return (int)launch_fma<128>(KET_ATTN_ARGS);
+  }
   if (dtype_code == 1) {
-    const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
-    const long long strides = in_sb | in_st | in_sh | out_sb | out_st | out_sh;
-    if ((ptrs & 15) || (strides & 7)) return (int)cudaErrorMisalignedAddress;
-    if (head_dim == 64) return (int)launch_wgmma<64>(KET_ATTN_ARGS);
-    if (head_dim == 32) return (int)launch_wgmma<32>(KET_ATTN_ARGS);
+    const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+    if ((ptrs & 15) || ((in_sb | in_st | in_sh) & 7)) return (int)cudaErrorMisalignedAddress;
+    switch ((head_dim + 15) / 16) {
+      case 1: return (int)launch_wgmma<16>(KET_ATTN_ARGS);
+      case 2: return (int)launch_wgmma<32>(KET_ATTN_ARGS);
+      case 3: return (int)launch_wgmma<48>(KET_ATTN_ARGS);
+      case 4: return (int)launch_wgmma<64>(KET_ATTN_ARGS);
+      case 5: return (int)launch_wgmma<80>(KET_ATTN_ARGS);
+      case 6: return (int)launch_wgmma<96>(KET_ATTN_ARGS);
+      case 7: return (int)launch_wgmma<112>(KET_ATTN_ARGS);
+      default: return (int)launch_wgmma<128>(KET_ATTN_ARGS);
+    }
   }
 #undef KET_ATTN_ARGS
   return (int)cudaErrorInvalidValue;

@@ -4,7 +4,9 @@
 // (kobato_eyes_tpu/ops/pallas_window_attention.py: _win_attn_kernel via
 // _win_attn_call / windowed_cosine_attention_packed). It computes what
 // _win_attn_kernel computes, per window and head:
-//   qn = q * rsqrt(max(sum(q^2), 1e-12)), kn likewise, both in f32
+//   qn = q * rsqrt(max(sum(q^2), 1e-12)), kn likewise, both in f32, with
+//     XLA's CPU rsqrt (xla_rsqrt.cuh: the host's estimate table, two Newton
+//     steps), which the JAX kernel's jax.lax.rsqrt is on the CPU
 //     (qk_bf16: qn and kn rounded to bf16, as qk_precision="bf16" does);
 //   logits = (qn kn^T) * scale[h] + bias[h] (+ mask[w]), all f32;
 //   w = exp(logits - rowmax) rounded to v's dtype, rowsum = sum(w) in f32;
@@ -76,6 +78,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "xla_rsqrt.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -136,7 +140,7 @@ __device__ __forceinline__ void load_normalised(const T* __restrict__ src, float
     ss = fmaf(x[k], x[k], ss);
   }
   ss = warp_sum(ss);
-  const float inv = rsqrtf(fmaxf(ss, 1e-12f));
+  const float inv = xla_rsqrt_floored(fmaxf(ss, 1e-12f));
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int d = lane + 32 * k;
@@ -308,7 +312,8 @@ __device__ __forceinline__ void team_barrier(int team) {
 // kn as f32 [8 * NR][HD + 4] during the q k^T phase and, after it, v as bf16
 // [kKeyPad][HD + 8], the output tile [8 * NR][HD] and the next window's raw q
 // and k rows [2][8 * NR][HD] (the pads keep 16-byte reads and ldmatrix off
-// shared banks another lane of the same access uses).
+// shared banks another lane of the same access uses). After all of it, the
+// block's 4 KB copy of the rsqrt estimate table (xla_rsqrt.cuh).
 template <int NR>
 __host__ __device__ constexpr size_t mma_table_bytes() {
   return sizeof(float) * (8 * NR) * kTableStride;
@@ -418,6 +423,10 @@ win_attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     table_load(table, mask + (long long)(u_first % n_windows) * n * n, n, warp, kHeadsPerBlock, lane);
     table_store(mask_s, table, n, warp, kHeadsPerBlock, lane);
   }
+  // the rsqrt estimate table (xla_rsqrt.cuh) as 16-bit words, resident for
+  // the block's life
+  uint16_t* rsqrt_s = reinterpret_cast<uint16_t*>(smem_mma + mma_smem_bytes<HD, NR, TEAMS>());
+  xla_rsqrt_table_to_shared(rsqrt_s, threadIdx.x, 32 * kHeadsPerBlock * TEAMS);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   const float sc = active ? __ldg(scale + h) : 0.f;
@@ -452,6 +461,33 @@ win_attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
           }
         }
         __syncwarp();  // every lane holds its rows
+        // every row's sum of squares first, then every rsqrt (independent
+        // chains of a table load and two Newton steps, which overlap), then
+        // the scaling
+        float inv[2][kLoadIters];
+#pragma unroll
+        for (int which = 0; which < 2; ++which) {
+#pragma unroll
+          for (int it = 0; it < kLoadIters; ++it) {
+            const uint32_t* wds = reinterpret_cast<const uint32_t*>(&raw[which][it]);
+            float ss = 0.f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(*reinterpret_cast<const bf162*>(&wds[e]));
+              ss = fmaf(f.x, f.x, ss);
+              ss = fmaf(f.y, f.y, ss);
+            }
+#pragma unroll
+            for (int off = 1; off < kChunks; off <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+            inv[which][it] = ss;
+          }
+        }
+#pragma unroll
+        for (int which = 0; which < 2; ++which) {
+#pragma unroll
+          for (int it = 0; it < kLoadIters; ++it)
+            inv[which][it] = xla_rsqrt_floored(fmaxf(inv[which][it], 1e-12f), rsqrt_s);
+        }
 #pragma unroll
         for (int which = 0; which < 2; ++which) {
           float* dst = which == 0 ? qn : kn;
@@ -461,22 +497,15 @@ win_attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
             const int row = idx / kChunks, ch = idx % kChunks;
             const uint32_t* wds = reinterpret_cast<const uint32_t*>(&raw[which][it]);
             float x[8];
-            float ss = 0.f;
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const float2 f = __bfloat1622float2(*reinterpret_cast<const bf162*>(&wds[e]));
-              x[2 * e] = f.x;
-              x[2 * e + 1] = f.y;
-              ss = fmaf(f.x, f.x, ss);
-              ss = fmaf(f.y, f.y, ss);
+              x[2 * e] = f.x * inv[which][it];
+              x[2 * e + 1] = f.y * inv[which][it];
             }
+            if (qk_bf16) {
 #pragma unroll
-            for (int off = 1; off < kChunks; off <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-            const float inv = rsqrtf(fmaxf(ss, 1e-12f));
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              x[e] *= inv;
-              if (qk_bf16) x[e] = __bfloat162float(__float2bfloat16(x[e]));
+              for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(__float2bfloat16(x[e]));
             }
             if (row < kRows) {  // rows n .. kRows - 1 are zeros
               float4* d4 = reinterpret_cast<float4*>(dst + row * kQStride + ch * 8);
@@ -699,7 +728,7 @@ cudaError_t launch_mma(const void* qkv, void* out, const float* scale, const flo
                        long long s_b, long long s_w, long long s_n, long long s_three, long long s_h,
                        long long o_b, long long o_w, long long o_n, long long o_h, int qk_bf16,
                        cudaStream_t stream) {
-  constexpr size_t bytes = mma_smem_bytes<HD, NR, TEAMS>();
+  constexpr size_t bytes = mma_smem_bytes<HD, NR, TEAMS>() + kXlaRsqrtSharedBytes;
   static_assert(bytes <= 232448, "a block's shared memory on sm_90");
   static bool configured = false;  // the attribute is per kernel, set once
   if (!configured) {
@@ -734,14 +763,19 @@ cudaError_t launch_mma(const void* qkv, void* out, const float* scale, const flo
 // qkv and out 16-byte aligned with strides that are multiples of 8). Strides are in elements; the last
 // (head_dim) stride of qkv and out is 1. scale (H,), bias (H, n, n) and mask
 // (nW, n, n) are contiguous f32; mask may be null (unshifted blocks).
+// rsqrt_table: the host's 2048 rsqrt estimates (xla_rsqrt.cuh), copied to
+// the device at its first launch there.
 extern "C" int window_cosine_attention_launch(
     const void* qkv, void* out, const void* scale, const void* bias, const void* mask,
     int batch, int n_windows, int n, int heads, int head_dim, int dtype_code, int qk_bf16,
     int variant,
     long long s_b, long long s_w, long long s_n, long long s_three, long long s_h,
-    long long o_b, long long o_w, long long o_n, long long o_h, void* stream) {
+    long long o_b, long long o_w, long long o_n, long long o_h, const void* rsqrt_table,
+    void* stream) {
   if (batch <= 0 || n_windows <= 0 || heads <= 0 || n <= 0 || n > kMaxTokens)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t table_err = xla_rsqrt_ensure_table(rsqrt_table);
+  if (table_err != cudaSuccess) return (int)table_err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);

@@ -1,5 +1,6 @@
-// exp and the logistic sigmoid in f32, as XLA's CPU backend computes
-// jnp.exp and jax.nn.sigmoid: one elementwise pass.
+// exp, the logistic sigmoid and rsqrt in f32, as XLA's CPU backend computes
+// jnp.exp, jax.nn.sigmoid and jax.lax.rsqrt: one elementwise pass (rsqrt's
+// steps are in xla_rsqrt.cuh).
 //
 // Not a port of a TPU kernel: the JAX package's probs_from_logits calls
 // jax.nn.sigmoid, which XLA compiles to divide(1, add(exponential(negate(x)),
@@ -32,6 +33,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "xla_rsqrt.cuh"
 
 namespace {
 
@@ -72,7 +75,7 @@ __device__ __forceinline__ float xla_sigmoid(float x) {
 
 template <int OP>
 __device__ __forceinline__ float apply(float x) {
-  return OP == 0 ? xla_exp(x) : xla_sigmoid(x);
+  return OP == 0 ? xla_exp(x) : OP == 1 ? xla_sigmoid(x) : xla_rsqrt(x);
 }
 
 template <int OP>
@@ -127,8 +130,11 @@ int launch(const float* x, float* y, long long n, int variant, cudaStream_t s) {
 
 }  // namespace
 
-// y = exp(x) (op 0) or sigmoid(x) (op 1), n f32 values; variant as launch's.
-extern "C" int xla_math_launch(const void* x, void* y, long long n, int op, int variant, void* stream) {
+// y = exp(x) (op 0), sigmoid(x) (op 1) or rsqrt(x) (op 2, xla_rsqrt.cuh;
+// rsqrt_table: the host's 2048 estimates, copied to the device at its first
+// rsqrt there), n f32 values; variant as launch's.
+extern "C" int xla_math_launch(const void* x, void* y, long long n, int op, int variant,
+                               const void* rsqrt_table, void* stream) {
   if (n <= 0) return 0;
   if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -136,5 +142,10 @@ extern "C" int xla_math_launch(const void* x, void* y, long long n, int op, int 
   float* yf = static_cast<float*>(y);
   if (op == 0) return launch<0>(xf, yf, n, variant, s);
   if (op == 1) return launch<1>(xf, yf, n, variant, s);
+  if (op == 2) {
+    const cudaError_t err = xla_rsqrt_ensure_table(rsqrt_table);
+    if (err != cudaSuccess) return (int)err;
+    return launch<2>(xf, yf, n, variant, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

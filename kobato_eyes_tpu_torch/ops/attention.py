@@ -18,7 +18,10 @@ strides straight from the packed (B, T, 3, H, D) projection and write
 (B, T, H, D), so no transpose copies surround them. ``kernel_variant`` says
 which kernel a call runs:
 
-* ``"wgmma"``: bfloat16, D in (32, 64). A q tile of 128 rows a block, 64
+* ``"wgmma"``: bfloat16, any D from 1 to 128: D rounded up to 16 (the
+  ``wgmma`` depth) is a template instance, the columns past D zero-filled
+  in shared memory, which leaves q k^T as it is and gives output columns
+  that are not written. A q tile of 128 rows a block, 64
   per warpgroup; K and V in 64-key tiles through a three-stage ``cp.async``
   ring in swizzled shared memory; ``S = Q K^T`` and ``O += P V`` by
   ``wgmma`` with f32 accumulation, the next tile's S started together with
@@ -26,8 +29,9 @@ which kernel a call runs:
   rounded to bf16 in registers (the register operand of the second
   product). It copies 16 bytes at a time, so a bfloat16 view that is not
   16-byte aligned, or whose strides are not multiples of 8, raises.
-* ``"fma"``: float32, D in (32, 64). f32 FMAs out of shared memory: tensor
-  cores would mean TF32 operands, which the port does not use.
+* ``"fma"``: float32, any D from 1 to 128 (padded to 32, 64 or 128 with
+  zeros). f32 FMAs out of shared memory: tensor cores would mean TF32
+  operands, which the port does not use.
 
 A wrapper launches the kernel for a CUDA tensor and raises if the launch
 fails; it takes the plain version only for a CPU tensor. ``launches`` counts
@@ -50,16 +54,17 @@ _count_lock = threading.Lock()
 
 _SOURCE = "head_resident_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
+MAX_HEAD_DIM = 128
 
 
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel of ``csrc/head_resident_attention.cu`` a CUDA call runs:
-    ``"wgmma"`` (tensor cores) for bfloat16, ``"fma"`` for float32."""
+    ``"wgmma"`` (tensor cores) for bfloat16, ``"fma"`` for float32, at any
+    head width from 1 to ``MAX_HEAD_DIM``."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"attention kernel takes float32 or bfloat16, got {dtype}")
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head_dim in {_HEAD_DIMS}, got {head_dim}")
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel takes head_dim 1 .. {MAX_HEAD_DIM}, got {head_dim}")
     return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
@@ -128,7 +133,7 @@ def check_alignment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on what the kernel does not take: it needs CUDA tensors of one
-    dtype (float32 or bfloat16), D in (32, 64) with unit stride, q, k, v
+    dtype (float32 or bfloat16), D from 1 to 128 with unit stride, q, k, v
     sharing their shape and strides (the packed views do), and bfloat16
     views aligned as ``check_alignment`` says."""
     for x in (q, k, v):
@@ -138,8 +143,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"attention kernel takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4:
         raise ValueError(f"expected (B, T, H, D) tensors, got shape {tuple(q.shape)}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head_dim in {_HEAD_DIMS}, got {q.shape[-1]}")
+    kernel_variant(q.dtype, q.shape[-1])
     for x in (k, v):
         if x.dtype != q.dtype or x.shape != q.shape or x.stride() != q.stride():
             raise ValueError("q, k and v must share dtype, shape and strides")

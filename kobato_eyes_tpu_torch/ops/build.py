@@ -38,8 +38,11 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` builds to: keyed by its bytes and the flags."""
+    """Where ``csrc/<source>`` builds to: keyed by its bytes, the shared
+    headers' (``csrc/*.cuh``) and the flags."""
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 

@@ -22,19 +22,33 @@ padded keys get ``exp(mask - m) = 0``, so attention over the real T is the
 same function, which the kernels compute with bounds checks instead.
 
 On the card the bound is operations (about 60.6 GFLOP for the forward at
-ViT-B/448 batch 32 against 154 MB moved). This first design runs every
-product as f32 FMAs out of shared memory, for bfloat16 as for float32 (see
-the source); ``kernel_variant`` names the body and the padded head width.
-The kernels read q, k and v through strides straight from the packed
-(B, T, 3, H, D) projection, and the two backward kernels write dq, dk and dv
-straight into one packed gradient of it. Any view with a unit last stride is
-taken, aligned or not: the kernels read one element at a time.
+ViT-B/448 batch 32 against 154 MB moved; 106 GFLOP for the backward's seven
+products at batch 16). The kernels read q, k and v through strides straight
+from the packed (B, T, 3, H, D) projection, and the two backward kernels
+write dq, dk and dv straight into one packed gradient of it. Two designs
+(see the source):
+
+* ``"fma"``: every product as f32 FMAs out of shared memory, for bfloat16
+  as for float32, the head width padded to 32, 64 or 128
+  (``kernel_variant`` names the padded width). Any view with a unit last
+  stride is taken, aligned or not: it reads one element at a time. The
+  forward runs it always; the backward for float32 (no TF32) and for
+  bfloat16 views ``aligned_for_wgmma`` refuses.
+* ``"wgmma"``: the backward for bfloat16 whose q, k, v and dO are 16-byte
+  aligned with strides that are multiples of 8, at any head width (rounded
+  up to 16): one warpgroup a block, ``S`` and ``dP`` by ``wgmma`` into
+  registers, ``P`` and ``dS`` formed there and rounded to bf16 as the
+  register operand of ``dV``, ``dK`` and ``dQ``'s ``wgmma``.
+  ``backward_variant`` says which body a backward call runs.
 
 A wrapper launches its kernel for a CUDA tensor and raises if the launch
 fails or the shape or dtype is not taken (float32 or bfloat16, head width up
-to 128); it takes the plain version only for a CPU tensor. ``launches``,
+to 128); it takes the plain version only for a CPU tensor, and it never
+falls back from one body to the other. ``launches``,
 ``backward_dkv_launches`` and ``backward_dq_launches`` count each kernel's
-launches in this process, under a lock.
+launches in this process, under a lock; ``backward_variant_launches`` counts
+the backward launches by body, ``{(kernel, variant): n}`` with kernel
+``"dkv"`` or ``"dq"``.
 """
 
 from __future__ import annotations
@@ -47,10 +61,12 @@ import torch
 launches = 0
 backward_dkv_launches = 0
 backward_dq_launches = 0
+backward_variant_launches = {(kernel, variant): 0 for kernel in ("dkv", "dq") for variant in ("wgmma", "fma")}
 _count_lock = threading.Lock()
 
 _SOURCE = "flash_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BACKWARD_VARIANT_CODES = {"fma": 0, "wgmma": 1}
 MAX_HEAD_DIM = 128
 
 
@@ -63,6 +79,21 @@ def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     if not 1 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernel takes head_dim 1 .. {MAX_HEAD_DIM}, got {head_dim}")
     return f"fma{32 if head_dim <= 32 else 64 if head_dim <= 64 else 128}"
+
+
+def backward_variant(dtype: torch.dtype, head_dim: int, *, aligned: bool = True) -> str:
+    """The body the dK/dV and dQ kernels run: ``"wgmma"`` (tensor cores) for
+    bfloat16 whose q, k, v and dO are ``aligned`` (``aligned_for_wgmma``),
+    ``"fma"`` for float32 and for bfloat16 views that are not."""
+    kernel_variant(dtype, head_dim)
+    return "wgmma" if dtype == torch.bfloat16 and aligned else "fma"
+
+
+def aligned_for_wgmma(*tensors: torch.Tensor) -> bool:
+    """Whether the ``"wgmma"`` bodies can copy these views 16 bytes at a
+    time: addresses multiples of 16 bytes, strides (but the last) multiples
+    of 8 elements."""
+    return all(x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:-1]) for x in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -132,12 +163,12 @@ def _library() -> ctypes.CDLL:
         )
         lib.flash_attention_forward.restype = ctypes.c_int
         lib.flash_attention_backward_dkv.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.flash_attention_backward_dkv.restype = ctypes.c_int
         lib.flash_attention_backward_dq.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.flash_attention_backward_dq.restype = ctypes.c_int
@@ -198,48 +229,53 @@ def flash_forward(qkv: torch.Tensor, scale: float) -> tuple[torch.Tensor, torch.
     return o, m, l
 
 
-def flash_backward_dkv(
-    qkv: torch.Tensor, do: torch.Tensor, m: torch.Tensor, l: torch.Tensor, di: torch.Tensor,
-    grad: torch.Tensor, scale: float,
-) -> None:
-    """The dK/dV kernel: writes dk and dv into ``grad[:, :, 1]`` and
-    ``grad[:, :, 2]`` of the packed (B, T, 3, H, D) gradient (CUDA only)."""
-    global backward_dkv_launches
+def _backward_launch(kernel: str, qkv: torch.Tensor, do: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                     di: torch.Tensor, grad: torch.Tensor, scale: float, variant: str | None) -> str:
+    global backward_dkv_launches, backward_dq_launches
     check_inputs(qkv, do)
     b, t, _, h, d = qkv.shape
     q, k, v = qkv.unbind(dim=2)
-    _, dk, dv = grad.unbind(dim=2)
-    err = _library().flash_attention_backward_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
-        di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, t, h, d, _DTYPE_CODES[qkv.dtype], *_strides(qkv), *_strides(do), *_strides(grad),
-        float(scale), _stream(qkv),
+    if variant is None:
+        variant = backward_variant(qkv.dtype, d, aligned=aligned_for_wgmma(q, k, v, do))
+    elif variant not in _BACKWARD_VARIANT_CODES:
+        raise ValueError(f"variant {variant!r} is none of {sorted(_BACKWARD_VARIANT_CODES)}")
+    dq, dk, dv = grad.unbind(dim=2)
+    outs = (dk.data_ptr(), dv.data_ptr()) if kernel == "dkv" else (dq.data_ptr(),)
+    fn = getattr(_library(), f"flash_attention_backward_{kernel}")
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), di.data_ptr(),
+        *outs, b, t, h, d, _DTYPE_CODES[qkv.dtype], _BACKWARD_VARIANT_CODES[variant],
+        *_strides(qkv), *_strides(do), *_strides(grad), float(scale), _stream(qkv),
     )
     if err != 0:
-        raise RuntimeError(f"flash attention dK/dV launch failed: cudaError_t {err}")
+        raise RuntimeError(f"flash attention {kernel} ({variant}) launch failed: cudaError_t {err}")
     with _count_lock:
-        backward_dkv_launches += 1
+        if kernel == "dkv":
+            backward_dkv_launches += 1
+        else:
+            backward_dq_launches += 1
+        backward_variant_launches[kernel, variant] += 1
+    return variant
+
+
+def flash_backward_dkv(
+    qkv: torch.Tensor, do: torch.Tensor, m: torch.Tensor, l: torch.Tensor, di: torch.Tensor,
+    grad: torch.Tensor, scale: float, *, variant: str | None = None,
+) -> str:
+    """The dK/dV kernel: writes dk and dv into ``grad[:, :, 1]`` and
+    ``grad[:, :, 2]`` of the packed (B, T, 3, H, D) gradient (CUDA only).
+    ``variant`` (``"wgmma"``, ``"fma"``) runs that body, to check or time it;
+    by default ``backward_variant`` chooses. Returns the body that ran."""
+    return _backward_launch("dkv", qkv, do, m, l, di, grad, scale, variant)
 
 
 def flash_backward_dq(
     qkv: torch.Tensor, do: torch.Tensor, m: torch.Tensor, l: torch.Tensor, di: torch.Tensor,
-    grad: torch.Tensor, scale: float,
-) -> None:
-    """The dQ kernel: writes dq into ``grad[:, :, 0]`` (CUDA only)."""
-    global backward_dq_launches
-    check_inputs(qkv, do)
-    b, t, _, h, d = qkv.shape
-    q, k, v = qkv.unbind(dim=2)
-    err = _library().flash_attention_backward_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
-        di.data_ptr(), grad[:, :, 0].data_ptr(),
-        b, t, h, d, _DTYPE_CODES[qkv.dtype], *_strides(qkv), *_strides(do), *_strides(grad),
-        float(scale), _stream(qkv),
-    )
-    if err != 0:
-        raise RuntimeError(f"flash attention dQ launch failed: cudaError_t {err}")
-    with _count_lock:
-        backward_dq_launches += 1
+    grad: torch.Tensor, scale: float, *, variant: str | None = None,
+) -> str:
+    """The dQ kernel: writes dq into ``grad[:, :, 0]`` (CUDA only);
+    ``variant`` as :func:`flash_backward_dkv`'s."""
+    return _backward_launch("dq", qkv, do, m, l, di, grad, scale, variant)
 
 
 def flash_backward(

@@ -4,10 +4,11 @@ Replaces the JAX package's window-resident Pallas kernel
 (``kobato_eyes_tpu/ops/pallas_window_attention.py``: ``_win_attn_kernel``
 through ``_win_attn_call`` / ``windowed_cosine_attention_packed``). Per
 window and head: q and k L2-normalised in f32 with
-``rsqrt(max(sum(x^2), 1e-12))``, logits times the exp-clamped per-head scale
-plus the CPB bias (H, n, n) plus the shift mask (nW, n, n), a row-max
-softmax whose ``exp`` is rounded to v's dtype and summed in f32, PV in f32,
-then the division.
+``rsqrt(max(sum(x^2), 1e-12))`` (XLA's CPU rsqrt, ``xla_math.rsqrt_plain``;
+the kernels take the same estimate table and Newton steps), logits times
+the exp-clamped per-head scale plus the CPB bias (H, n, n) plus the shift
+mask (nW, n, n), a row-max softmax whose ``exp`` is rounded to v's dtype and
+summed in f32, PV in f32, then the division.
 
 ``qk_precision``: ``"default"`` and ``"highest"`` take the products on f32
 operands, which is what the JAX function computes on the CPU (on the TPU,
@@ -48,6 +49,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from kobato_eyes_tpu_torch.ops.xla_math import rsqrt_estimate_table, rsqrt_plain
 
 launches = 0
 
@@ -118,8 +121,8 @@ def windowed_cosine_attention_packed_plain(
     _check_shapes(qkv, scale, bias, mask)
     q, k, v = qkv.unbind(dim=3)  # (B, nW, n, H, hd)
     qf, kf = q.float(), k.float()
-    qn = qf * torch.rsqrt(torch.clamp((qf * qf).sum(-1, keepdim=True), min=1e-12))
-    kn = kf * torch.rsqrt(torch.clamp((kf * kf).sum(-1, keepdim=True), min=1e-12))
+    qn = qf * rsqrt_plain(torch.clamp((qf * qf).sum(-1, keepdim=True), min=1e-12))
+    kn = kf * rsqrt_plain(torch.clamp((kf * kf).sum(-1, keepdim=True), min=1e-12))
     if qk_precision == "bf16":
         qn, kn = qn.bfloat16().float(), kn.bfloat16().float()
     logits = torch.einsum("bwnhd,bwmhd->bwhnm", qn, kn)
@@ -149,7 +152,7 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 9
-            + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 2
         )
         fn.restype = ctypes.c_int
     return lib
@@ -196,7 +199,7 @@ def _launch(qkv: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         _VARIANT_CODES[variant],
         qkv.stride(0), qkv.stride(1), qkv.stride(2), qkv.stride(3), qkv.stride(4),
         out.stride(0), out.stride(1), out.stride(2), out.stride(3),
-        stream,
+        rsqrt_estimate_table().ctypes.data, stream,
     )
     if err != 0:
         raise RuntimeError(f"window_cosine_attention launch failed: cudaError_t {err}")

@@ -1,5 +1,5 @@
-"""``exp`` and the logistic sigmoid as XLA's CPU backend computes them in f32:
-one hand-written CUDA pass and its plain version.
+"""``exp``, the logistic sigmoid and ``rsqrt`` as XLA's CPU backend computes
+them in f32: one hand-written CUDA pass and its plain versions.
 
 Not a port of a TPU kernel: the JAX package's ``probs_from_logits`` calls
 ``jax.nn.sigmoid``, which XLA compiles to ``divide(1, add(exponential(
@@ -35,7 +35,24 @@ that fits in one wave of the card's resident threads, four beyond (the
 ``"vec"`` body, 16-byte loads). A wrapper launches the kernel for a CUDA
 tensor and raises if the launch fails; it takes the plain version only for
 a CPU tensor. ``launches`` counts the sigmoid pass's launches,
-``exp_launches`` those of ``exp``.
+``exp_launches`` those of ``exp``, ``rsqrt_launches`` those of ``rsqrt``.
+
+XLA's f32 ``rsqrt`` on an x86 CPU (``jax.lax.rsqrt``, which the JAX window
+kernel normalises q and k with) is the intrinsic ``xla.rsqrt.f32``: the
+12-bit hardware estimate of ``_mm256_rsqrt_ps``, then two Newton steps
+``y = fma(-0.5 * y, fma(x * y, y, -1), y)`` (``x * y`` and ``-0.5 * y``
+rounded, the other two steps fused), then the raw estimate again for the
+inputs ``llvm.is.fpclass(x, 764)`` names: zeros and subnormals (``inf`` of
+their sign), ``+inf`` (0) and every negative number (the default NaN). A NaN
+stays NaN. The estimate depends only on the exponent's parity and the top 10
+mantissa bits, so it is a table of 2048 entries; it differs between x86
+vendors, so ``rsqrt_estimate_table`` reads it once from the host's own
+instruction (``native/xla_rsqrt.cpp``) and raises on a host without it.
+``rsqrt_plain`` looks the estimate up and takes the steps with ``fma_f32``;
+the CUDA pass and the window kernel (``csrc/xla_rsqrt.cuh``) take the same
+table, copied once a device into device memory and read through the
+read-only cache; the window kernel's ``"mma"`` body reads a 16-bit copy of
+it in shared memory.
 """
 
 from __future__ import annotations
@@ -43,15 +60,19 @@ from __future__ import annotations
 import ctypes
 import struct
 import threading
+from pathlib import Path
+
+import numpy as np
 
 import torch
 
 launches = 0
 exp_launches = 0
+rsqrt_launches = 0
 _count_lock = threading.Lock()
 
 _SOURCE = "xla_sigmoid.cu"
-_OPS = {"exp": 0, "sigmoid": 1}
+_OPS = {"exp": 0, "sigmoid": 1, "rsqrt": 2}
 VARIANTS = {None: 0, "vec": 1, "scalar": 2}  # None: by size
 
 LOG2E = 1.44269504088896341
@@ -62,6 +83,8 @@ POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
 EXP_LO = -88.3762626647949  # exp is 0 below (its result would be subnormal)
 M_MAX = 127.0
 FLT_MIN = 1.17549435e-38  # the smallest normal f32: below it, a result flushes to 0
+RSQRT_TABLE_SIZE = 2048
+_rsqrt_table: np.ndarray | None = None
 
 
 def _f32(v: float) -> float:
@@ -115,6 +138,65 @@ def exp_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), _quiet_nan(x, flip_sign=False), out)
 
 
+def _native_rsqrt_library() -> ctypes.CDLL:
+    """``native/xla_rsqrt.cpp``, built at first use into ``native/_xla_rsqrt.so``
+    under the repository's native build lock (``build/native_build.lock``):
+    the loader builds through one fixed temporary name, so processes that
+    build at once would meet each other's half-written file."""
+    import fcntl
+
+    from kobato_eyes_tpu_torch.native.build import load_native_library
+
+    lock = Path(__file__).resolve().parents[2] / "build" / "native_build.lock"
+    lock.parent.mkdir(exist_ok=True)
+    with lock.open("w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            return load_native_library("xla_rsqrt")
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def rsqrt_estimate_table() -> np.ndarray:
+    """The host's ``rsqrtps`` estimate as 2048 f32 bit patterns (uint32):
+    entry ``((E & 1) << 10) | (mantissa >> 13)`` is the estimate of
+    ``2**(E0 - 127) * (1 + top10 / 1024)``, ``E0 = 126 + (E & 1)``. Read once
+    a process; raises where the host has no ``rsqrtps``."""
+    global _rsqrt_table
+    with _count_lock:
+        if _rsqrt_table is None:
+            fn = _native_rsqrt_library().xla_rsqrt_estimate_table
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            table = np.zeros(RSQRT_TABLE_SIZE, dtype=np.uint32)
+            if fn(table.ctypes.data) != 0:
+                raise RuntimeError("this host has no rsqrtps: XLA's CPU rsqrt cannot be reproduced here")
+            table.setflags(write=False)
+            _rsqrt_table = table
+        return _rsqrt_table
+
+
+def rsqrt_plain(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 ``rsqrt`` of an f32 tensor (module docstring), on the
+    tensor's own device."""
+    x = x.float()
+    bits = x.view(torch.int32)
+    e = (bits >> 23) & 0xFF
+    table = torch.tensor(rsqrt_estimate_table().view(np.int32), device=x.device)
+    # the estimate of the reference binade E0 of the same parity, moved by
+    # (E - E0) / 2 binades the other way
+    est = table[((e & 1) << 10) | ((bits >> 13) & 1023)] - (((e - 126 - (e & 1)) >> 1) << 23)
+    y = est.view(torch.float32)
+    for _ in range(2):
+        y = fma_f32(y * -0.5, fma_f32(x * y, y, -1.0), y)
+    sign = bits < 0
+    # negatives: the default NaN (0xffc00000); +inf: 0; zeros, subnormals: inf of their sign
+    raw = torch.where(sign, torch.tensor(-0x00400000, dtype=torch.int32), 0).view(torch.float32)
+    raw = torch.where(e == 0, torch.where(sign, -torch.inf, torch.inf), raw)
+    out = torch.where((e == 0) | sign | torch.isposinf(x), raw, y)
+    return torch.where(torch.isnan(x), _quiet_nan(x, flip_sign=False), out)
+
+
 def sigmoid_plain(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` as XLA's CPU backend computes it in f32."""
     x = x.float()
@@ -128,7 +210,7 @@ def _library() -> ctypes.CDLL:
     lib = load(_SOURCE)
     if lib.xla_math_launch.argtypes is None:
         vp = ctypes.c_void_p
-        lib.xla_math_launch.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+        lib.xla_math_launch.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp, vp]
         lib.xla_math_launch.restype = ctypes.c_int
     return lib
 
@@ -145,8 +227,9 @@ def _launch(x: torch.Tensor, op: str, variant: str | None) -> torch.Tensor:
     out = torch.empty_like(xc)
     if xc.numel():
         stream = torch.cuda.current_stream(xc.device).cuda_stream
+        table = rsqrt_estimate_table().ctypes.data if op == "rsqrt" else None
         err = _library().xla_math_launch(xc.data_ptr(), out.data_ptr(), xc.numel(), _OPS[op], VARIANTS[variant],
-                                         stream)
+                                         table, stream)
         if err != 0:
             raise RuntimeError(f"xla {op} launch failed: cudaError_t {err}")
     return out
@@ -178,4 +261,18 @@ def xla_sigmoid_f32(x: torch.Tensor, *, variant: str | None = None) -> torch.Ten
     if x.numel():
         with _count_lock:
             launches += 1
+    return out
+
+
+def xla_rsqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.rsqrt`` in f32 as XLA computes it on this host's CPU: the
+    CUDA pass for a CUDA tensor (its body chosen by size), the plain version
+    for a CPU tensor."""
+    global rsqrt_launches
+    if x.device.type == "cpu":
+        return rsqrt_plain(x)
+    out = _launch(x, "rsqrt", None)
+    if x.numel():
+        with _count_lock:
+            rsqrt_launches += 1
     return out

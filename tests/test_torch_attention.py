@@ -126,13 +126,27 @@ def test_unaligned_bf16_views_are_refused(case):
 @pytest.mark.parametrize("dtype,want", [(torch.float32, "fma"), (torch.bfloat16, "wgmma")])
 def test_kernel_variant_by_dtype(dtype, head_dim, want):
     """float32 keeps the FMA kernel (tensor cores would mean TF32 operands);
-    bfloat16 takes the tensor-core kernel, at each head_dim the kernel has."""
+    bfloat16 takes the tensor-core kernel, at the WD14 and CLIP widths."""
     assert attn.kernel_variant(dtype, head_dim) == want
 
 
+@pytest.mark.parametrize("dtype,want", [(torch.float32, "fma"), (torch.bfloat16, "wgmma")])
+def test_kernel_variant_takes_every_head_width(dtype, want):
+    """Every head width from 1 to 128 (the flash kernels' range) has a body:
+    bf16 widths round up to the wgmma depth of 16, f32 ones pad to 32, 64 or
+    128, the columns past D zero-filled. The tiny preset's 48 is one."""
+    assert [attn.kernel_variant(dtype, d) for d in range(1, attn.MAX_HEAD_DIM + 1)] == [want] * 128
+    assert attn.kernel_variant(dtype, 48) == attn.kernel_variant(dtype, 40) == want
+
+
 def test_kernel_variant_refuses_what_no_kernel_takes():
-    with pytest.raises(ValueError, match="head_dim"):
-        attn.kernel_variant(torch.bfloat16, 48)
+    """Widths outside 1 .. 128 and other dtypes. (Until the bodies took
+    every width, 48 was refused here: the tiny preset's fast_math fault.)"""
+    for head_dim in (0, attn.MAX_HEAD_DIM + 1):
+        with pytest.raises(ValueError, match="head_dim"):
+            attn.kernel_variant(torch.bfloat16, head_dim)
+        with pytest.raises(ValueError, match="head_dim"):
+            attn.kernel_variant(torch.float32, head_dim)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         attn.kernel_variant(torch.float16, 64)
 

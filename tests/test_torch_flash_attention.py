@@ -168,6 +168,47 @@ def test_kernel_variant_and_cuda_checks():
         fa.check_inputs(torch.zeros(1, 5, 3, 2, 32))
 
 
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"), (torch.float32, "fma")])
+def test_backward_variant_by_dtype_at_every_head_width(dtype, want):
+    """The dK/dV and dQ kernels' body: the tensor cores for bfloat16 at every
+    head width 1 .. 128 (rounded up to 16 in shared memory), FMAs for
+    float32 (no TF32); the forward keeps its one ``"fma"`` body."""
+    assert {fa.backward_variant(dtype, d) for d in range(1, fa.MAX_HEAD_DIM + 1)} == {want}
+    assert fa.kernel_variant(dtype, 64) == "fma64"
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.backward_variant(dtype, fa.MAX_HEAD_DIM + 1)
+
+
+@pytest.mark.parametrize("case,aligned", [("packed", True), ("packed_d48", True), ("packed_d36", False),
+                                          ("strided", False), ("odd_offset", False), ("dO_strided", False)])
+def test_backward_variant_by_alignment(case, aligned):
+    """``"wgmma"`` copies q, k, v and dO 16 bytes at a time: a bfloat16 view
+    that is not 16-byte aligned, or whose strides are not multiples of 8,
+    takes ``"fma"``, which reads one element at a time."""
+    b, t, h = 2, 37, 3
+    d = {"packed_d48": 48, "packed_d36": 36}.get(case, 64)
+    qkv = torch.zeros(b, t, 3, h, d, dtype=torch.bfloat16)
+    do = torch.zeros(b, t, h, d, dtype=torch.bfloat16)
+    if case == "strided":
+        qkv = torch.zeros(b, t, 3, h, d + 4, dtype=torch.bfloat16)[..., :d]
+    elif case == "odd_offset":
+        qkv = torch.zeros(b * t * 3 * h * d + 8, dtype=torch.bfloat16)[1:1 + b * t * 3 * h * d].view(b, t, 3, h, d)
+    elif case == "dO_strided":
+        do = torch.zeros(b, t, h, d + 4, dtype=torch.bfloat16)[..., :d]
+    got = fa.aligned_for_wgmma(*qkv.unbind(dim=2), do)
+    assert got is aligned
+    assert fa.backward_variant(torch.bfloat16, d, aligned=got) == ("wgmma" if aligned else "fma")
+
+
+def test_the_cpu_backward_counts_no_launch():
+    before = (fa.backward_dkv_launches, fa.backward_dq_launches, dict(fa.backward_variant_launches))
+    qkv = torch.from_numpy(_qkv(37, 48, seed=0)).to(torch.bfloat16).requires_grad_()
+    fa.flash_attention_packed(qkv, 48**-0.5).float().sum().backward()
+    assert qkv.grad.shape == qkv.shape and torch.isfinite(qkv.grad.float()).all()
+    assert (fa.backward_dkv_launches, fa.backward_dq_launches, dict(fa.backward_variant_launches)) == before
+    assert set(fa.backward_variant_launches) == {(k, v) for k in ("dkv", "dq") for v in ("wgmma", "fma")}
+
+
 def test_a_cuda_request_without_a_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device resolves")

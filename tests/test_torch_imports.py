@@ -162,8 +162,9 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import kobato_eyes_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
-        # a built native/_catalog_fetch.so or _hnsw.so is a plain C library (ctypes), no Python module
-        "names = [n for n in names if not n.endswith(('._catalog_fetch', '._hnsw'))]\n"
+        # a built native/_catalog_fetch.so, _hnsw.so or _xla_rsqrt.so is a plain C library (ctypes),
+        # no Python module
+        "names = [n for n in names if not n.endswith(('._catalog_fetch', '._hnsw', '._xla_rsqrt'))]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         f"missing = sorted(set({REQUIRED_MODULES!r}) - set(names))\n"

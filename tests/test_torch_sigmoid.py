@@ -149,10 +149,10 @@ def test_an_unknown_body_raises():
 
 
 def test_xla_rsqrt_is_none_of_the_portable_forms():
-    """Why the window kernel's rsqrt fault stays open (ROADMAP §3): XLA's CPU
-    f32 ``rsqrt`` equals none of ``1 / sqrt(x)``, ``sqrt(1 / x)`` or the
-    f64 value rounded to f32 on more than a few of these inputs, unlike the
-    exponential above, whose steps could be written out."""
+    """Why ``xla_math.rsqrt_plain`` reads the host's estimate table (see
+    ``tests/test_torch_xla_rsqrt.py``): XLA's CPU f32 ``rsqrt`` equals none of
+    ``1 / sqrt(x)``, ``sqrt(1 / x)`` or the f64 value rounded to f32 on more
+    than a few of these inputs."""
     x = (np.abs(np.random.default_rng(1).normal(size=200_000)) * 4 + 1e-3).astype(np.float32)
     want = np.asarray(jax.jit(jax.lax.rsqrt)(x)).view(np.uint32)
     forms = {

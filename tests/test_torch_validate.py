@@ -48,8 +48,9 @@ REPORT_KEYS = {
 LANES = {"vit": ("tiny", 64, 32, 4, 9), "swinv2": ("tiny", 224, 16, 2, 0)}
 
 
-def _checkpoint(lane: str, path):
-    preset, size, classes, _, seed = LANES[lane]
+def _checkpoint(lane: str, path, seed: int | None = None):
+    preset, size, classes, _, lane_seed = LANES[lane]
+    seed = lane_seed if seed is None else seed
     if lane == "vit":
         jcfg = jvit.vit_config(preset, image_size=size, num_classes=classes)
         tcfg = tvit.vit_config(preset, image_size=size, num_classes=classes)
@@ -127,3 +128,31 @@ def test_cli_validate_checkpoint_on_cpu(tmp_path, capsys):
     with pytest.raises(Exception, match="does not match manifest|missing"):
         tcli.main(["--device", "cpu", "validate-checkpoint", str(path), "--arch", "clip",
                    "--preset", preset, "--image-size", str(size)])
+
+
+def validate_gap(seeds=range(20)) -> list[tuple[str, int, float, float, bool]]:
+    """Both packages' ``validate-checkpoint`` on the tiny lanes at each weight
+    seed: (lane, seed, the JAX report's max_prob_deviation, the port's, the
+    reports' tag_flips equal). What ROADMAP §3 records of the cross-package
+    bf16 gap; run as a script (below), not as a test."""
+    import tempfile
+    from pathlib import Path
+
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for lane in LANES:
+            preset, size, classes, n_images, _ = LANES[lane]
+            kw = dict(arch=lane, preset=preset, image_size=size, classes=classes, n_images=n_images)
+            for seed in seeds:
+                path = Path(tmp) / f"{lane}_{seed}.pt"
+                _checkpoint(lane, path, seed)
+                want, got = jax_validate(path, **kw), validate_checkpoint(path, device="cpu", **kw)
+                rows.append((lane, seed, want["max_prob_deviation"], got["max_prob_deviation"],
+                             want["tag_flips"] == got["tag_flips"]))
+    return rows
+
+
+if __name__ == "__main__":  # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_validate.py
+    for lane, seed, want, got, flips_equal in validate_gap():
+        print(f"{lane} seed {seed}: max_prob_deviation jax {want:.6f} port {got:.6f} "
+              f"|diff| {abs(want - got):.2e} tag_flips equal {flips_equal}")

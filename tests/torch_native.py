@@ -5,7 +5,9 @@ Import ``native_built`` into a test module to build and load the
 package before its tests run; import ``catalog_fetch_built`` for the
 ``_catalog_fetch`` library (plain C, loaded with ctypes) that both packages'
 epoch builds read a catalog file through, and ``hnsw_built`` for both
-packages' ``_hnsw`` graph library (plain C).
+packages' ``_hnsw`` graph library (plain C). (The port's ``_xla_rsqrt``
+library, which reads the host's rsqrt estimate table, takes the same lock
+itself: ``ops/xla_math.rsqrt_estimate_table``.)
 """
 
 from __future__ import annotations
