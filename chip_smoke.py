@@ -58,7 +58,8 @@ batch 32, random seeded weights):
   448, batch 16, one epoch), the checkpoint in ``TorchTagger`` and an
   ``index`` from it, the step's time and MFU;
 * flash attention (``attn_impl="flash"``): the forward, dK/dV and dQ
-  kernels against their plain versions at ViT-B/448 (bf16 and f32) and on
+  kernels (bf16 through both bodies, ``"wgmma"`` and ``"fma"``) against
+  their plain versions at ViT-B/448 (bf16 and f32) and on
   strided and misaligned views at D = 48 / 32, each timed beside SDPA's
   forward or backward; the ViT-B/448 forward at batch 32 with the flash
   path beside the einsum forward; 3 flash train steps at batch 16 beside
@@ -234,6 +235,38 @@ def build_kernels() -> float:
                 print(f"ptxas {lib.name}: {line.strip()}")
     print(f"kernel build: {len(sources)} source(s) in {seconds:.1f} s")
     return seconds
+
+
+def ptxas_registers(source: str) -> dict[str, int]:
+    """Registers a thread of each kernel of ``csrc/<source>``, from its
+    build log (``-Xptxas -v``), by mangled name."""
+    import re
+
+    from kobato_eyes_tpu_torch.ops import build
+
+    log = build.library_path(source).with_suffix(".log")
+    regs, name = {}, None
+    for line in log.read_text(encoding="utf-8").splitlines() if log.exists() else []:
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            name = hit.group(1)
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name is not None:
+            regs[name] = int(hit.group(1))
+            name = None
+    return regs
+
+
+def short_kernel_name(mangled: str) -> str:
+    """``attn_wgmma_kernel<64,1,1>`` for the mangled name of a kernel whose
+    template arguments are ints, bools and element types."""
+    import re
+
+    hit = re.search(r"\d([a-z][a-z_]*_kernel)I(.*?)EEv", mangled)
+    if hit:
+        parts = re.findall(r"L[ib](\d+)|13__nv_(bfloat16)|^(f)|(?<=E)(f)", hit.group(2))
+        return f"{hit.group(1)}<{','.join(next(a for a in g if a) for g in parts)}>"
+    return mangled
 
 
 # ---------------------------------------------------------------------------
@@ -1124,16 +1157,19 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
     projection (the bf16 backward's ``"wgmma"``), from views whose head
     stride is not a multiple of 8 and from views one element off alignment
     (the ``"fma"`` bodies, which read one element at a time); D = 8 and
-    every multiple of 16 up to 128 at T = 37 and 129 packed, where each bf16 backward that chooses
-    ``"wgmma"`` holds the ``"fma"`` body too. f32: ``o`` within 2e-5, ``m`` and
+    every multiple of 16 up to 128 at T = 37 and 129 packed (bf16 also at T = 785, B = 1, the
+    forward alone), where each bf16 call that chooses ``"wgmma"`` holds the ``"fma"`` bodies too
+    (the forward's and the backward's), and the backward is fed the chosen forward's ``o``, ``m``
+    and ``l``. f32: ``o`` within 2e-5, ``m`` and
     ``l`` within 1e-6 of the largest, each gradient within 1e-5 of its
     largest. bf16: ``o`` and each gradient no further from the f64 plain
     version than twice the bf16 plain version is, plus one bf16 ulp of the
     largest value. Then each kernel's time through a CUDA graph, the least
     of three readings taken in turns with SDPA's forward or its backward
-    through autograd (the backward's two bodies and SDPA's backward in turns,
-    with TFLOP/s), beside the bound and the plain version's time. Returns
-    the three kernels' entries (the backward's: the ``"wgmma"`` body's)."""
+    through autograd (each kernel's two bodies and SDPA's call in turns, with
+    TFLOP/s and the forward bodies' registers), beside the bound and the
+    plain version's time. Returns the three kernels' entries (each the
+    ``"wgmma"`` body's)."""
     import torch
     import torch.nn.functional as F
 
@@ -1171,31 +1207,43 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
     def hold(name, qkv, scale, backward, expect=None):
         """The kernels on ``qkv`` against the plain versions; returns the
         forward's error and (with ``backward``) each gradient's through the
-        body the wrapper chooses (``expect``, where given), which
-        ``flash_backward`` runs. A bf16 call that chooses ``"wgmma"`` holds
-        the ``"fma"`` body at the same inputs too."""
+        bodies the wrappers choose (``expect``, where given, for both), which
+        ``flash_forward`` and ``flash_backward`` run; the backward is fed
+        the chosen forward's o, m and l. A bf16 call that chooses
+        ``"wgmma"`` holds the ``"fma"`` bodies at the same inputs too."""
         b, t, _, h, d = qkv.shape
         q, k, v = qkv.unbind(dim=2)
-        o, m, l = fa.flash_forward(qkv, scale)
+        chosen = fa.forward_variant(qkv.dtype, d, aligned=fa.aligned_for_wgmma(q, k, v))
+        check(expect is None or chosen == expect, f"flash {name}: the forward chose {chosen}, not {expect}")
         po, pm, pl = fa.flash_forward_plain(q, k, v, scale)
-        torch.cuda.synchronize()
-        variant = fa.kernel_variant(qkv.dtype, d)
-        tag = f"{name} {str(qkv.dtype).split('.')[-1]} (B {b}, T {t}, H {h}, D {d}) [{variant}]"
-        check(o.dtype == qkv.dtype and o.shape == (b, t, h, d) and m.shape == l.shape == (b, h, t),
-              f"flash {tag}: dtype/shape")
-        check(bool(torch.isfinite(o).all() & torch.isfinite(m).all() & torch.isfinite(l).all()),
-              f"flash {tag}: non-finite output")
-        close(f"{tag} m", m, pm, 1e-6)
-        close(f"{tag} l", l, pl, 1e-6)
         bf16 = qkv.dtype == torch.bfloat16
         if bf16:
             q64, k64, v64 = (x.double() for x in (q, k, v))
             eo, em, el = fa.flash_forward_plain(q64, k64, v64, scale)
-            errs = [held(f"{tag} o", o, po, eo)]
-        else:
-            errs = [float((o - po).abs().max())]
-            print(f"flash {tag} o: max |kernel - plain| {errs[0]:.3e} (tol 2e-5)")
-            check(errs[0] <= 2e-5, f"flash {tag} o: {errs[0]} > 2e-5")
+        errs = []
+        for body in [chosen] + (["fma"] if chosen == "wgmma" else []):
+            before = dict(fa.forward_variant_launches)
+            got = fa.flash_forward(qkv, scale, variant=None if body == chosen else body)
+            torch.cuda.synchronize()
+            check(fa.forward_variant_launches[body] == before[body] + 1, f"flash {name}: the forward did not run {body}")
+            tag = f"{name} {str(qkv.dtype).split('.')[-1]} (B {b}, T {t}, H {h}, D {d}) [fwd {body}]"
+            fo, fm, fl = got
+            check(fo.dtype == qkv.dtype and fo.shape == (b, t, h, d) and fm.shape == fl.shape == (b, h, t),
+                  f"flash {tag}: dtype/shape")
+            check(bool(torch.isfinite(fo).all() & torch.isfinite(fm).all() & torch.isfinite(fl).all()),
+                  f"flash {tag}: non-finite output")
+            close(f"{tag} m", fm, pm, 1e-6)
+            close(f"{tag} l", fl, pl, 1e-6)
+            if bf16:
+                err = held(f"{tag} o", fo, po, eo)
+            else:
+                err = float((fo - po).abs().max())
+                print(f"flash {tag} o: max |kernel - plain| {err:.3e} (tol 2e-5)")
+                check(err <= 2e-5, f"flash {tag} o: {err} > 2e-5")
+            if body == chosen:
+                errs.append(err)
+                o, m, l = got
+        tag = f"{name} {str(qkv.dtype).split('.')[-1]} (B {b}, T {t}, H {h}, D {d})"
         if backward:
             # dO laid out as qkv's heads are (a narrow view of a wider row where qkv is one)
             do = randn((b, t, h, qkv.stride(-2)), qkv.dtype)[..., :d]
@@ -1247,9 +1295,14 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
         for hd in (8, 16, 32, 48, 64, 80, 96, 112, 128):
             for t_len in (37, 129):
                 hold("packed", randn((2, t_len, 3, 4, hd), dt), hd**-0.5, backward=True, expect=body)
-        # D = 36 from a view of a 40-wide projection: aligned, so bf16 takes
-        # "wgmma" with the last 16-byte chunk of each row read half and zero-filled
+        # D = 36 and 20 from views of 40- and 24-wide projections: aligned, so
+        # bf16 takes "wgmma" with the last 16-byte chunk of each row read half
+        # and zero-filled
         hold("narrow aligned view", randn((2, 129, 3, 4, 40), dt)[..., :36], 36**-0.5, backward=True, expect=body)
+        hold("narrow aligned view", randn((2, 129, 3, 4, 24), dt)[..., :20], 20**-0.5, backward=True, expect=body)
+        if dt == torch.bfloat16:  # the forward bodies at every D16 at T = 785 (13 key tiles, the last of 17 keys)
+            for hd in (8, 16, 32, 48, 64, 80, 96, 112, 128):
+                hold("packed", randn((1, t, 3, 4, hd), dt), hd**-0.5, backward=False, expect=body)
     for dt in (torch.bfloat16, torch.float32):
         for hd in (48, 32):
             for t_len in (37, 129):
@@ -1292,16 +1345,22 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
         # its forward's stream, so the forward is captured too
         return torch.autograd.grad(F.scaled_dot_product_attention(sq, sk, sv, scale=scale), (sq, sk, sv), sdo)
 
-    readings = {key: [] for key in ("fwd32", "sdpa32", "fwd1", "sdpa1", "fwd16", "sdpa16", "dkv", "dq",
-                                    "dkv_fma", "dq_fma", "sdpa_both")}
+    readings = {key: [] for key in ("fwd32", "fwd32_fma", "sdpa32", "fwd1", "fwd1_fma", "sdpa1", "fwd16",
+                                    "fwd16_fma", "sdpa16", "dkv", "dq", "dkv_fma", "dq_fma", "sdpa_both")}
     for _ in range(FLASH_READINGS):
-        readings["fwd32"].append(cuda_graph_ms([lambda: fa.flash_forward(main[torch.bfloat16], scale)] * 2))
+        for body, suffix in (("wgmma", ""), ("fma", "_fma")):
+            readings["fwd32" + suffix].append(cuda_graph_ms(
+                [lambda: fa.flash_forward(main[torch.bfloat16], scale, variant=body)] * 2))
         readings["sdpa32"].append(cuda_graph_ms(
             [lambda: F.scaled_dot_product_attention(q32, k32, v32, scale=scale)] * 8))
-        readings["fwd1"].append(cuda_graph_ms([lambda: fa.flash_forward(one[torch.bfloat16], scale)] * 8))
+        for body, suffix in (("wgmma", ""), ("fma", "_fma")):
+            readings["fwd1" + suffix].append(cuda_graph_ms(
+                [lambda: fa.flash_forward(one[torch.bfloat16], scale, variant=body)] * 8))
         readings["sdpa1"].append(cuda_graph_ms(
             [lambda: F.scaled_dot_product_attention(q1, k1, v1, scale=scale)] * 8))
-        readings["fwd16"].append(cuda_graph_ms([lambda: fa.flash_forward(qkv16, scale)] * 2))
+        for body, suffix in (("wgmma", ""), ("fma", "_fma")):
+            readings["fwd16" + suffix].append(cuda_graph_ms(
+                [lambda: fa.flash_forward(qkv16, scale, variant=body)] * 2))
         readings["sdpa16"].append(cuda_graph_ms(
             [lambda: F.scaled_dot_product_attention(sq, sk, sv, scale=scale)] * 8))
         for body, suffix in (("wgmma", ""), ("fma", "_fma")):
@@ -1331,12 +1390,17 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
 
     bwd_in = tb * t * h * (4 * d * elt + 3 * 4)  # q, k, v, dO, and m, l, di (f32)
     lines = []
+    regs = ptxas_registers("flash_attention.cu")
     for key, bb, lib in (("fwd32", b, "sdpa32"), ("fwd1", 1, "sdpa1"), ("fwd16", tb, "sdpa16")):
         bms, by = bound(fwd_flops[bb], fwd_bytes(bb))
-        lines.append(f"bf16 forward B={bb}: kernel {best[key]:.4f} ms (readings "
-                     f"{' / '.join(f'{r:.4f}' for r in readings[key])}), sdpa {best[lib]:.4f} ms, bound {bms:.4f} ms "
-                     f"({by}: {fwd_flops[bb] / 1e9:.1f} GFLOP, {fwd_bytes(bb) / 1e6:.1f} MB), "
-                     f"{fwd_flops[bb] / (best[key] * 1e-3) / 1e12:.2f} TFLOP/s")
+        for body, suffix in (("wgmma", ""), ("fma", "_fma")):
+            k_ms = best[key + suffix]
+            lines.append(f"bf16 forward [{body}] B={bb}: kernel {k_ms:.4f} ms (readings "
+                         f"{' / '.join(f'{r:.4f}' for r in readings[key + suffix])}), sdpa {best[lib]:.4f} ms "
+                         f"({k_ms / best[lib]:.2f}x sdpa), bound {bms:.4f} ms ({by}: {fwd_flops[bb] / 1e9:.1f} GFLOP, "
+                         f"{fwd_bytes(bb) / 1e6:.1f} MB), {fwd_flops[bb] / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    lines.append("forward registers: " + ", ".join(
+        f"{short_kernel_name(name)} {n}" for name, n in regs.items() if "flash_fwd" in name or "attn_wgmma" in name))
     dkv_bound, dkv_by = bound(_flash_products(tb, t, h, d, 4), bwd_in + tb * t * h * 2 * d * elt)
     dq_bound, dq_by = bound(_flash_products(tb, t, h, d, 3), bwd_in + tb * t * h * d * elt)
     five, seven = (_flash_products(tb, t, h, d, n) for n in (5, 7))
@@ -1398,8 +1462,9 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
 def flash_vit_phase() -> int:
     """The ViT-B/448 forward at batch 32 with ``attn_impl="flash"`` beside the
     exact (einsum) forward on the same seeded weights and normalised images:
-    probabilities within 3e-2, 12 flash forward launches and no kernel-1
-    launch. Returns the flash forward launches."""
+    probabilities within 3e-2, 12 flash forward launches, every one the
+    ``"wgmma"`` body, and no kernel-1 launch. Returns the flash forward
+    launches."""
     import numpy as np
     import torch
 
@@ -1416,19 +1481,22 @@ def flash_vit_phase() -> int:
     x = torch.from_numpy(np.random.default_rng(4).normal(size=(BATCH, size, size, 3)).astype(np.float32)).to(DEVICE)
     with torch.no_grad():
         fa.launches = attention.launches = attention.launches_separate = 0
+        fa.forward_variant_launches = dict.fromkeys(fa.forward_variant_launches, 0)
         probs = torch.sigmoid(flash(x).float())
         torch.cuda.synchronize()
         launches, kernel1 = fa.launches, attention.launches + attention.launches_separate
+        bodies = dict(fa.forward_variant_launches)
         want = torch.sigmoid(exact(x).float())
         err = float((probs - want).abs().max())
         flash_ms = cuda_ms(lambda: flash(x), iters=3, warmup=1)
         exact_ms = cuda_ms(lambda: exact(x), iters=3, warmup=1)
     print(f"flash vit-b448 batch {BATCH} forward: probabilities max |flash - einsum| {err:.3e} (tol 3e-2); "
-          f"flash forward launches {launches}, kernel-1 launches {kernel1}; {flash_ms:.2f} ms, einsum "
-          f"{exact_ms:.2f} ms (CUDA events, warm, mean of 3)")
+          f"flash forward launches {launches} (bodies {bodies}), kernel-1 launches {kernel1}; {flash_ms:.2f} ms, "
+          f"einsum {exact_ms:.2f} ms (CUDA events, warm, mean of 3)")
     check(bool(torch.isfinite(probs).all()) and tuple(probs.shape) == (BATCH, N_LABELS), "flash vit: probabilities")
     check(err <= 3e-2, f"flash vit: probabilities {err} apart from the einsum forward")
     check(launches == cfg.depth and kernel1 == 0, f"flash vit: {launches} flash, {kernel1} kernel-1 launches")
+    check(bodies == {"wgmma": cfg.depth, "fma": 0}, f"flash vit: forward bodies {bodies}, not {cfg.depth} \"wgmma\"")
     del flash, exact, x
     torch.cuda.empty_cache()
     return launches
@@ -3519,7 +3587,7 @@ def flash_train_phase() -> tuple[int, int, int]:
     each tensor's step-1 gradient no further (max |dg| / max |g|) from an
     f32 einsum step's than twice the bf16 einsum step's worst tensor is,
     and within 3e-2 of the bf16 einsum step's; exactly 12 forward, 12 dK/dV
-    and 12 dQ launches a step, every backward launch the ``"wgmma"`` body.
+    and 12 dQ launches a step, every launch the ``"wgmma"`` body.
     Then both steps' ms (CUDA events, warm, mean of 5) and peak memory.
     Returns the three kernels' launches."""
     import numpy as np
@@ -3555,6 +3623,7 @@ def flash_train_phase() -> tuple[int, int, int]:
     torch.cuda.empty_cache()
 
     fa.launches = fa.backward_dkv_launches = fa.backward_dq_launches = 0
+    fa.forward_variant_launches = dict.fromkeys(fa.forward_variant_launches, 0)
     fa.backward_variant_launches = dict.fromkeys(fa.backward_variant_launches, 0)
     losses, grads = [], None
     for x, y in batches:
@@ -3563,7 +3632,10 @@ def flash_train_phase() -> tuple[int, int, int]:
             grads = {k: p.grad.float().clone() for k, p in flash.model.named_parameters()}
     counts = (fa.launches, fa.backward_dkv_launches, fa.backward_dq_launches)
     by_variant = dict(fa.backward_variant_launches)
+    fwd_bodies = dict(fa.forward_variant_launches)
     expect = FLASH_TRAIN_STEPS * fcfg.depth
+    check(fwd_bodies == {"wgmma": expect, "fma": 0},
+          f"flash train: the forward's bodies {fwd_bodies}, not {expect} \"wgmma\" launches")
     check(counts == (expect,) * 3, f"flash train: launches (forward, dK/dV, dQ) {counts} != {expect} each")
     check(by_variant == {("dkv", "wgmma"): expect, ("dq", "wgmma"): expect, ("dkv", "fma"): 0, ("dq", "fma"): 0},
           f"flash train: the backward's bodies {by_variant}, not {expect} \"wgmma\" launches of each kernel")
@@ -3595,7 +3667,8 @@ def flash_train_phase() -> tuple[int, int, int]:
           f"{' '.join(f'{v:.6f}' for v in one_losses)} (max rel {rel:.3e}, tol 1e-3); step-1 gradient norm ratio "
           f"{min(ratios.values()):.5f}..{max(ratios.values()):.5f} (worst {worst_ratio}), max |dg| / max |g| "
           f"{dg[worst_dg]:.3e} ({worst_dg}, tol 3e-2); launches a step: forward {counts[0] // FLASH_TRAIN_STEPS}, "
-          f"dK/dV {counts[1] // FLASH_TRAIN_STEPS}, dQ {counts[2] // FLASH_TRAIN_STEPS} (bodies {by_variant})")
+          f"dK/dV {counts[1] // FLASH_TRAIN_STEPS}, dQ {counts[2] // FLASH_TRAIN_STEPS} (bodies: forward "
+          f"{fwd_bodies}, backward {by_variant})")
     check(rel <= 1e-3, f"flash train: losses {rel} apart from the einsum step (relative)")
     check(all(0.99 <= v <= 1.01 for v in ratios.values()),
           f"flash train: gradient norm ratio {ratios[worst_ratio]} ({worst_ratio})")

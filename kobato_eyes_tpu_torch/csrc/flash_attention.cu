@@ -32,30 +32,41 @@
 // atomics are needed: the dK/dV kernel sums over the q rows inside the
 // block, the dQ kernel over the keys.
 //
-// Two designs. "fma" (the forward, and the backward for float32 and for
-// views the other cannot copy): every product f32 FMAs out of shared memory,
-// for float32 (tensor cores would mean TF32, which the port does not use)
-// and for bfloat16 alike (bf16 values widen to f32 exactly as they are
-// loaded; bf16 products are exact in f32). 256 threads a block; thread
+// Three designs. "fma" (forward and backward for float32, and for bfloat16
+// views the others cannot copy): every product f32 FMAs out of shared
+// memory, for float32 (tensor cores would mean TF32, which the port does
+// not use) and for bfloat16 alike (bf16 values widen to f32 exactly as they
+// are loaded; bf16 products are exact in f32). 256 threads a block; thread
 // (tr, tc) = (tid / 16, tid % 16) owns rows tr + 16 i (i < 4) and columns
 // tc + 16 j of each 64 x 64 tile, so a row's 64 columns sit on the 16
 // lanes of one half-warp and its max and sum reduce by shuffles. The head
 // width is padded to DP = 32, 64 or 128 with zeros (D = 48 runs as 64).
 // q, k, v and dO are read one element at a time through their strides, so
 // any view with a unit last stride is taken, aligned or not. Two shared
-// loads feed four FMAs: the backward ran at ~20 TFLOP/s this way.
+// loads feed four FMAs: ~20 TFLOP/s on an H100 this way.
 //
-// "wgmma" (the backward for bfloat16 whose q, k, v and dO rows are 16-byte
-// aligned with strides that are multiples of 8: the ViT's packed
-// projection): one warpgroup a block, every product a wgmma with f32
-// accumulation out of swizzled shared memory (wgmma.cuh), S and dP in
-// registers, P and dS formed there with the same arithmetic and rounded to
-// bf16 as the register A operand of the next product, so neither touches
-// shared memory. dK/dV owns 64 keys (K, V staged once) and streams the q
-// tiles, with their dO, m, 1 / l and di, through a cp.async ring; dK and dV
-// stay in registers over the whole loop. dQ owns 64 q rows (Q, dO staged
-// once) and streams the K, V tiles. The head width is rounded up to 16, the
-// wgmma depth (the columns past d are zeros in shared memory).
+// "wgmma" forward (bfloat16 whose q, k and v rows are 16-byte aligned with
+// strides that are multiples of 8: the ViT's packed projection): the
+// tensor-core body of head_resident_attention.cu (kernel 1), shared through
+// attention_wgmma.cuh. Two warpgroups a block share each 64-key K/V tile of
+// a three-stage cp.async ring; S = Q K^T by wgmma into registers, the online
+// softmax on the fragment, P rounded to bf16 there as the register A
+// operand of O += P V, and S of the next tile issued together with O += P V
+// of this one. It keeps this file's arithmetic, not kernel 1's (its FLASH
+// instance): no bf16 pre-scale of q, l of the unrounded p, m and l written.
+//
+// "wgmma" backward (bfloat16 whose q, k, v and dO are aligned so): one
+// warpgroup a block, every product a wgmma with f32 accumulation out of
+// swizzled shared memory (wgmma.cuh), S and dP in registers, P and dS
+// formed there with the same arithmetic and rounded to bf16 as the
+// register A operand of the next product, so neither touches shared
+// memory. dK/dV owns 64 keys (K, V staged once) and streams the q tiles,
+// with their dO, m, 1 / l and di, through a cp.async ring; dK and dV stay
+// in registers over the whole loop. dQ owns 64 q rows (Q, dO staged once)
+// and streams the K, V tiles.
+//
+// Both "wgmma" designs round the head width up to 16, the wgmma depth (the
+// columns past d are zeros in shared memory).
 //
 // The scaling is __fmul_rn, so that the compiler cannot fuse it into the
 // subtraction of m that follows: JAX rounds the scaled logits first.
@@ -67,6 +78,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_wgmma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -855,6 +867,22 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
+template <int D16, bool FULL>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* m, float* l,
+                             Shape sh, const long long* in_s, const long long* out_s, float scale,
+                             cudaStream_t stream) {
+  static unsigned configured = 0;
+  constexpr size_t bytes = wgmma_smem_bytes<D16>();
+  cudaError_t err = allow_smem(attn_wgmma_kernel<D16, FULL, true>, bytes, &configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sh.t_len + kQRows - 1) / kQRows, sh.heads, sh.batch);
+  attn_wgmma_kernel<D16, FULL, true><<<grid, kNumThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), m, l, sh.t_len, sh.heads, sh.d,
+      in_s[0], in_s[1], in_s[2], out_s[0], out_s[1], out_s[2], scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int DP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* m, const float* l, const float* di, void* dk, void* dv,
@@ -948,10 +976,13 @@ int padded(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
 
 // dtype_code: 0 = float32, 1 = bfloat16. Strides are in elements, (batch,
 // token, head) each; the head_dim stride is 1 for every tensor. q, k and v
-// share their strides; m and l are (B, H, T) f32, written.
+// share their strides; m and l are (B, H, T) f32, written. variant: 0 =
+// "fma" (float32 or bfloat16, any view with a unit last stride), 1 =
+// "wgmma" (bfloat16, q, k and v 16-byte aligned with strides that are
+// multiples of 8; any head width 1 .. 128).
 extern "C" int flash_attention_forward(
     const void* q, const void* k, const void* v, void* o, float* m, float* l,
-    int batch, int t_len, int heads, int head_dim, int dtype_code,
+    int batch, int t_len, int heads, int head_dim, int dtype_code, int variant,
     long long in_sb, long long in_st, long long in_sh,
     long long out_sb, long long out_st, long long out_sh,
     float scale, void* stream) {
@@ -960,6 +991,25 @@ extern "C" int flash_attention_forward(
   const long long in_s[3] = {in_sb, in_st, in_sh};
   const long long out_s[3] = {out_sb, out_st, out_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype_code != 1) return (int)cudaErrorInvalidValue;
+    if (!wgmma_aligned(q, k, v, v, in_s, in_s)) return (int)cudaErrorMisalignedAddress;  // no dO here
+#define KET_FWD_WG(D16) \
+  (head_dim == D16 ? launch_fwd_wgmma<D16, true>(q, k, v, o, m, l, sh, in_s, out_s, scale, s) \
+                   : launch_fwd_wgmma<D16, false>(q, k, v, o, m, l, sh, in_s, out_s, scale, s))
+    switch ((head_dim + 15) / 16) {
+      case 1: return (int)KET_FWD_WG(16);
+      case 2: return (int)KET_FWD_WG(32);
+      case 3: return (int)KET_FWD_WG(48);
+      case 4: return (int)KET_FWD_WG(64);
+      case 5: return (int)KET_FWD_WG(80);
+      case 6: return (int)KET_FWD_WG(96);
+      case 7: return (int)KET_FWD_WG(112);
+      default: return (int)KET_FWD_WG(128);
+    }
+#undef KET_FWD_WG
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
 #define KET_FWD(T, DP) launch_fwd<T, DP>(q, k, v, o, m, l, sh, in_s, out_s, scale, s)
   const int dp = padded(head_dim);
   if (dtype_code == 0) {

@@ -5,7 +5,9 @@
 // _ln_res_call / layernorm_residual). It computes what _ln_res_kernel
 // computes, per row of C values:
 //   mean = sum(x) / C and var = sum(x^2) / C - mean^2 in f32 (no clamp),
-//   y = (x - mean) * rsqrt(var + eps) * gamma + beta in f32,
+//   y = (x - mean) * rsqrt(var + eps) * gamma + beta in f32, the rsqrt
+//     XLA's CPU one (xla_rsqrt.cuh), which the JAX kernel's jax.lax.rsqrt is
+//     on the CPU,
 //   out = shortcut + y in f32, rounded once to x's dtype.
 //
 // Bound on the card: bytes. The call reads x and the shortcut once and
@@ -41,6 +43,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "xla_rsqrt.cuh"
 
 namespace {
 
@@ -96,7 +100,7 @@ ln_res_kernel(const T* __restrict__ x, const T* __restrict__ res,
   sq = warp_sum(sq);
   const float mean = sum / (float)cols;
   const float var = __fsub_rn(sq / (float)cols, __fmul_rn(mean, mean));
-  const float inv = rsqrtf(__fadd_rn(var, eps));
+  const float inv = xla_rsqrt(__fadd_rn(var, eps));
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int c = lane + 32 * k;
@@ -243,7 +247,7 @@ ln_res_vec_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
   const float mean = sum / (float)cols;
   const float var = __fsub_rn(sq / (float)cols, __fmul_rn(mean, mean));
-  const float inv = rsqrtf(__fadd_rn(var, eps));
+  const float inv = xla_rsqrt(__fadd_rn(var, eps));
 
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -298,11 +302,16 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // dtype_code: 0 = float32, 1 = bfloat16. variant: 0 = "scalar", 1 = "vec8"
 // (cols a multiple of 8 and all five pointers multiples of 16 bytes, else
 // cudaErrorInvalidValue). x, res and out are contiguous (rows, cols) of that
-// dtype; gamma and beta contiguous f32 (cols,).
+// dtype; gamma and beta contiguous f32 (cols,). rsqrt_table: the host's 2048
+// rsqrt estimates (xla_rsqrt.cuh), copied to the device at its first launch
+// there.
 extern "C" int layernorm_residual_launch(const void* x, const void* res, const void* gamma,
                                          const void* beta, void* out, long long rows, int cols,
-                                         int dtype_code, int variant, float eps, void* stream) {
+                                         int dtype_code, int variant, float eps, const void* rsqrt_table,
+                                         void* stream) {
   if (rows <= 0 || cols <= 0 || cols > kMaxCols) return (int)cudaErrorInvalidValue;
+  const cudaError_t table_err = xla_rsqrt_ensure_table(rsqrt_table);
+  if (table_err != cudaSuccess) return (int)table_err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);

@@ -38,7 +38,7 @@ import copy
 import torch
 from torch import nn
 
-from kobato_eyes_tpu_torch.models.vit import ViT
+from kobato_eyes_tpu_torch.models.vit import ViT, attention_residual
 from kobato_eyes_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     Mesh,
@@ -139,10 +139,11 @@ class MeshForward:
             if split_attn:
                 parts = [s.blocks[i].attn.proj.product(s.blocks[i].attn.heads_out(a.to(d)))
                          for s, d in zip(shards, devs)]
-                h = h + (_reduce(parts, x.device, dtype) + block.attn.proj.bias.to(dtype))
+                res = attention_residual(h, _reduce(parts, x.device, dtype) + block.attn.proj.bias.to(dtype))
             else:
-                h = h + block.attn(a)
-            a = block.norm2(h)
+                res = attention_residual(h, block.attn(a))
+            h = res.to(dtype)
+            a = block.norm2(res)
             if split_mlp:
                 parts = [s.blocks[i].mlp.fc2.product(s.blocks[i].mlp.hidden(a.to(d)))
                          for s, d in zip(shards, devs)]

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from kobato_eyes_tpu_torch.models.vit import LayerNorm, Linear, Mlp
+from kobato_eyes_tpu_torch.ops import xla_math
 from kobato_eyes_tpu_torch.ops.layernorm_residual import layernorm_residual
 from kobato_eyes_tpu_torch.ops.window_attention import windowed_cosine_attention_packed
 
@@ -228,7 +229,8 @@ class ResidualPostNorm(nn.Module):
 
     ``ln_impl="xla"`` is the JAX package's formulation: f32 statistics with
     E[x^2] - E[x]^2 and no clamp (unlike flax's ``nn.LayerNorm``, which
-    ``vit.LayerNorm`` copies), the normalised value rounded to ``dtype``, then
+    ``vit.LayerNorm`` copies), XLA's CPU rsqrt (``xla_math.rsqrt``, as
+    ``jax.lax.rsqrt`` there), the normalised value rounded to ``dtype``, then
     added to the shortcut in ``dtype``. ``"pallas_residual"`` goes to the
     CUDA kernel, which adds in f32 and rounds once.
     """
@@ -246,7 +248,7 @@ class ResidualPostNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
-        y = (xf - mean) * torch.rsqrt(var + 1e-5)
+        y = (xf - mean) * xla_math.rsqrt(var + 1e-5)
         y = y * self.weight + self.bias  # in f32, bf16 parameters read as stored
         return shortcut.to(cfg.dtype) + y.to(cfg.dtype)
 

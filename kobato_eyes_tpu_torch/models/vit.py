@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kobato_eyes_tpu_torch.ops import xla_math
 from kobato_eyes_tpu_torch.ops.gelu import gelu
 
 
@@ -157,7 +158,8 @@ class Linear(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax LayerNorm: f32 statistics with the fast variance
-    ``max(E[x^2] - E[x]^2, 0)``, eps inside the rsqrt, output in ``dtype``."""
+    ``max(E[x^2] - E[x]^2, 0)``, eps inside the rsqrt (XLA's CPU rsqrt, which
+    flax's ``lax.rsqrt`` is there: ``xla_math.rsqrt``), output in ``dtype``."""
 
     def __init__(self, dim: int, cfg: Any, eps: float = 1e-5) -> None:
         super().__init__()
@@ -173,7 +175,7 @@ class LayerNorm(nn.Module):
         var = torch.clamp(mu2 - mu * mu, min=0.0)
         # f32 times the weight's own dtype computes in f32 with no cast pass:
         # bf16 parameters (``bf16_params``) are read as they are stored
-        mul = torch.rsqrt(var + self.eps) * self.weight
+        mul = xla_math.rsqrt(var + self.eps) * self.weight
         return ((xf - mu) * mul + self.bias).to(self.dtype)
 
 
@@ -252,8 +254,17 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg.hidden_dim, cfg.mlp_dim // split[1], cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        s = attention_residual(x, self.attn(self.norm1(x)))
+        return s.to(x.dtype) + self.mlp(self.norm2(s))
+
+
+def attention_residual(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``x + a`` in f32, not rounded to the block's dtype: XLA's compiled JAX
+    block keeps this sum in f32 where ``ln2`` reads it (its excess precision
+    drops the bf16 round trip inside the fusion) and rounds it only where
+    the MLP's output is added. Rounding it before ``ln2`` as well put 5-7% of
+    a bf16 block's outputs one bf16 step apart from the JAX package's."""
+    return x.float() + a
 
 
 class PatchEmbed(nn.Module):

@@ -25,30 +25,37 @@ On the card the bound is operations (about 60.6 GFLOP for the forward at
 ViT-B/448 batch 32 against 154 MB moved; 106 GFLOP for the backward's seven
 products at batch 16). The kernels read q, k and v through strides straight
 from the packed (B, T, 3, H, D) projection, and the two backward kernels
-write dq, dk and dv straight into one packed gradient of it. Two designs
+write dq, dk and dv straight into one packed gradient of it. Three designs
 (see the source):
 
 * ``"fma"``: every product as f32 FMAs out of shared memory, for bfloat16
   as for float32, the head width padded to 32, 64 or 128
   (``kernel_variant`` names the padded width). Any view with a unit last
   stride is taken, aligned or not: it reads one element at a time. The
-  forward runs it always; the backward for float32 (no TF32) and for
-  bfloat16 views ``aligned_for_wgmma`` refuses.
-* ``"wgmma"``: the backward for bfloat16 whose q, k, v and dO are 16-byte
-  aligned with strides that are multiples of 8, at any head width (rounded
-  up to 16): one warpgroup a block, ``S`` and ``dP`` by ``wgmma`` into
-  registers, ``P`` and ``dS`` formed there and rounded to bf16 as the
-  register operand of ``dV``, ``dK`` and ``dQ``'s ``wgmma``.
-  ``backward_variant`` says which body a backward call runs.
+  forward and the backward run it for float32 (no TF32) and for bfloat16
+  views ``aligned_for_wgmma`` refuses.
+* the ``"wgmma"`` forward: bfloat16 whose q, k and v are 16-byte aligned
+  with strides that are multiples of 8, at any head width (rounded up to
+  16): two warpgroups a block share each K/V tile, ``S`` by ``wgmma`` into
+  registers, the online softmax there, ``P`` rounded to bf16 as the
+  register operand of ``O += P V``; the arithmetic above (no bf16
+  pre-scale of q, ``l`` of the unrounded ``p``), ``m`` and ``l`` written.
+  ``forward_variant`` says which body a forward call runs.
+* the ``"wgmma"`` backward: bfloat16 whose q, k, v and dO are aligned so:
+  one warpgroup a block, ``S`` and ``dP`` by ``wgmma`` into registers,
+  ``P`` and ``dS`` formed there and rounded to bf16 as the register
+  operand of ``dV``, ``dK`` and ``dQ``'s ``wgmma``. ``backward_variant``
+  says which body a backward call runs.
 
 A wrapper launches its kernel for a CUDA tensor and raises if the launch
 fails or the shape or dtype is not taken (float32 or bfloat16, head width up
 to 128); it takes the plain version only for a CPU tensor, and it never
 falls back from one body to the other. ``launches``,
 ``backward_dkv_launches`` and ``backward_dq_launches`` count each kernel's
-launches in this process, under a lock; ``backward_variant_launches`` counts
-the backward launches by body, ``{(kernel, variant): n}`` with kernel
-``"dkv"`` or ``"dq"``.
+launches in this process, under a lock; ``forward_variant_launches`` counts
+the forward launches by body, ``{variant: n}``, and
+``backward_variant_launches`` the backward launches, ``{(kernel, variant):
+n}`` with kernel ``"dkv"`` or ``"dq"``.
 """
 
 from __future__ import annotations
@@ -61,12 +68,13 @@ import torch
 launches = 0
 backward_dkv_launches = 0
 backward_dq_launches = 0
+forward_variant_launches = {"wgmma": 0, "fma": 0}
 backward_variant_launches = {(kernel, variant): 0 for kernel in ("dkv", "dq") for variant in ("wgmma", "fma")}
 _count_lock = threading.Lock()
 
 _SOURCE = "flash_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_BACKWARD_VARIANT_CODES = {"fma": 0, "wgmma": 1}
+_VARIANT_CODES = {"fma": 0, "wgmma": 1}
 MAX_HEAD_DIM = 128
 
 
@@ -81,12 +89,18 @@ def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     return f"fma{32 if head_dim <= 32 else 64 if head_dim <= 64 else 128}"
 
 
-def backward_variant(dtype: torch.dtype, head_dim: int, *, aligned: bool = True) -> str:
-    """The body the dK/dV and dQ kernels run: ``"wgmma"`` (tensor cores) for
-    bfloat16 whose q, k, v and dO are ``aligned`` (``aligned_for_wgmma``),
+def forward_variant(dtype: torch.dtype, head_dim: int, *, aligned: bool = True) -> str:
+    """The body the forward kernel runs: ``"wgmma"`` (tensor cores) for
+    bfloat16 whose q, k and v are ``aligned`` (``aligned_for_wgmma``),
     ``"fma"`` for float32 and for bfloat16 views that are not."""
     kernel_variant(dtype, head_dim)
     return "wgmma" if dtype == torch.bfloat16 and aligned else "fma"
+
+
+def backward_variant(dtype: torch.dtype, head_dim: int, *, aligned: bool = True) -> str:
+    """The body the dK/dV and dQ kernels run: as :func:`forward_variant`,
+    with dO among the views that must be ``aligned``."""
+    return forward_variant(dtype, head_dim, aligned=aligned)
 
 
 def aligned_for_wgmma(*tensors: torch.Tensor) -> bool:
@@ -158,7 +172,7 @@ def _library() -> ctypes.CDLL:
     lib = load(_SOURCE)
     if lib.flash_attention_forward.argtypes is None:
         lib.flash_attention_forward.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.flash_attention_forward.restype = ctypes.c_int
@@ -204,10 +218,20 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def flash_forward(qkv: torch.Tensor, scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _check_variant(variant: str | None) -> None:
+    if variant is not None and variant not in _VARIANT_CODES:
+        raise ValueError(f"variant {variant!r} is none of {sorted(_VARIANT_CODES)}")
+
+
+def flash_forward(
+    qkv: torch.Tensor, scale: float, *, variant: str | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed (B, T, 3, H, D) -> (o (B, T, H, D), m, l (B, H, T) f32): the
-    forward kernel on a CUDA tensor, the plain version on a CPU one."""
+    forward kernel on a CUDA tensor, the plain version on a CPU one.
+    ``variant`` (``"wgmma"``, ``"fma"``) runs that body, to check or time
+    it; by default ``forward_variant`` chooses."""
     global launches
+    _check_variant(variant)
     if qkv.dim() != 5 or qkv.shape[2] != 3:
         raise ValueError(f"expected (B, T, 3, H, D) qkv, got shape {tuple(qkv.shape)}")
     q, k, v = qkv.unbind(dim=2)
@@ -215,17 +239,21 @@ def flash_forward(qkv: torch.Tensor, scale: float) -> tuple[torch.Tensor, torch.
         return flash_forward_plain(q, k, v, scale)
     check_inputs(qkv)
     b, t, _, h, d = qkv.shape
+    if variant is None:
+        variant = forward_variant(qkv.dtype, d, aligned=aligned_for_wgmma(q, k, v))
     o = torch.empty((b, t, h, d), dtype=qkv.dtype, device=qkv.device)
     m = torch.empty((b, h, t), dtype=torch.float32, device=qkv.device)
     l = torch.empty_like(m)
     err = _library().flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, t, h, d, _DTYPE_CODES[qkv.dtype], *_strides(qkv), *_strides(o), float(scale), _stream(qkv),
+        b, t, h, d, _DTYPE_CODES[qkv.dtype], _VARIANT_CODES[variant], *_strides(qkv), *_strides(o), float(scale),
+        _stream(qkv),
     )
     if err != 0:
-        raise RuntimeError(f"flash attention forward launch failed: cudaError_t {err}")
+        raise RuntimeError(f"flash attention forward ({variant}) launch failed: cudaError_t {err}")
     with _count_lock:
         launches += 1
+        forward_variant_launches[variant] += 1
     return o, m, l
 
 
@@ -235,16 +263,15 @@ def _backward_launch(kernel: str, qkv: torch.Tensor, do: torch.Tensor, m: torch.
     check_inputs(qkv, do)
     b, t, _, h, d = qkv.shape
     q, k, v = qkv.unbind(dim=2)
+    _check_variant(variant)
     if variant is None:
         variant = backward_variant(qkv.dtype, d, aligned=aligned_for_wgmma(q, k, v, do))
-    elif variant not in _BACKWARD_VARIANT_CODES:
-        raise ValueError(f"variant {variant!r} is none of {sorted(_BACKWARD_VARIANT_CODES)}")
     dq, dk, dv = grad.unbind(dim=2)
     outs = (dk.data_ptr(), dv.data_ptr()) if kernel == "dkv" else (dq.data_ptr(),)
     fn = getattr(_library(), f"flash_attention_backward_{kernel}")
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), di.data_ptr(),
-        *outs, b, t, h, d, _DTYPE_CODES[qkv.dtype], _BACKWARD_VARIANT_CODES[variant],
+        *outs, b, t, h, d, _DTYPE_CODES[qkv.dtype], _VARIANT_CODES[variant],
         *_strides(qkv), *_strides(do), *_strides(grad), float(scale), _stream(qkv),
     )
     if err != 0:

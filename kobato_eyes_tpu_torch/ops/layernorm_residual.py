@@ -4,7 +4,9 @@ its plain version.
 Replaces the JAX package's residual LayerNorm Pallas kernel
 (``kobato_eyes_tpu/ops/pallas_layernorm_residual.py``: ``_ln_res_kernel``
 through ``_ln_res_call`` / ``layernorm_residual``): f32 statistics with
-E[x^2] - E[x]^2 (no clamp), eps inside the rsqrt,
+E[x^2] - E[x]^2 (no clamp), eps inside the rsqrt, which is XLA's CPU rsqrt
+as the JAX kernel's ``jax.lax.rsqrt`` is there (``xla_math.rsqrt_plain``;
+``csrc/xla_rsqrt.cuh`` in the kernel, with the host's estimate table),
 ``(x - mean) * inv * gamma + beta``, the shortcut added in f32, one rounding
 to x's dtype at the end.
 
@@ -37,6 +39,8 @@ import ctypes
 
 import torch
 
+from kobato_eyes_tpu_torch.ops.xla_math import rsqrt_estimate_table, rsqrt_plain
+
 launches = 0
 
 _SOURCE = "layernorm_residual.cu"
@@ -68,7 +72,7 @@ def layernorm_residual_plain(
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
-    y = (xf - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+    y = (xf - mean) * rsqrt_plain(var + eps) * gamma.float() + beta.float()
     return (shortcut.float() + y).to(x.dtype)
 
 
@@ -81,7 +85,7 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = (
             [ctypes.c_void_p] * 5
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-               ctypes.c_void_p]
+               ctypes.c_void_p, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
@@ -136,7 +140,8 @@ def layernorm_residual(
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.layernorm_residual_launch(
         x2.data_ptr(), res2.data_ptr(), g32.data_ptr(), b32.data_ptr(), out.data_ptr(),
-        x2.shape[0], c, _DTYPE_CODES[x.dtype], _VARIANT_CODES[variant], float(eps), stream,
+        x2.shape[0], c, _DTYPE_CODES[x.dtype], _VARIANT_CODES[variant], float(eps),
+        rsqrt_estimate_table().ctypes.data, stream,
     )
     if err != 0:
         raise RuntimeError(f"layernorm_residual launch failed: cudaError_t {err}")

@@ -52,7 +52,9 @@ instruction (``native/xla_rsqrt.cpp``) and raises on a host without it.
 the CUDA pass and the window kernel (``csrc/xla_rsqrt.cuh``) take the same
 table, copied once a device into device memory and read through the
 read-only cache; the window kernel's ``"mma"`` body reads a 16-bit copy of
-it in shared memory.
+it in shared memory. ``rsqrt`` is the form the port's LayerNorms call: this
+value on either device, with ``jax.lax.rsqrt``'s gradient
+``g * (-0.5 * (y / x))``.
 """
 
 from __future__ import annotations
@@ -276,3 +278,24 @@ def xla_rsqrt_f32(x: torch.Tensor) -> torch.Tensor:
         with _count_lock:
             rsqrt_launches += 1
     return out
+
+
+class _Rsqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = xla_rsqrt_f32(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        x, y = ctx.saved_tensors
+        return g * (-0.5 * (y / x))  # jax.lax.rsqrt's JVP rule
+
+
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``rsqrt`` as :func:`xla_rsqrt_f32` computes it (the CUDA pass
+    for a CUDA tensor, the plain version for a CPU one), differentiable as
+    ``jax.lax.rsqrt`` is: what flax's ``nn.LayerNorm`` and the JAX package's
+    LayerNorms call."""
+    return _Rsqrt.apply(x)

@@ -172,7 +172,8 @@ def test_kernel_variant_and_cuda_checks():
 def test_backward_variant_by_dtype_at_every_head_width(dtype, want):
     """The dK/dV and dQ kernels' body: the tensor cores for bfloat16 at every
     head width 1 .. 128 (rounded up to 16 in shared memory), FMAs for
-    float32 (no TF32); the forward keeps its one ``"fma"`` body."""
+    float32 (no TF32); ``kernel_variant`` still names the ``"fma"``
+    padding."""
     assert {fa.backward_variant(dtype, d) for d in range(1, fa.MAX_HEAD_DIM + 1)} == {want}
     assert fa.kernel_variant(dtype, 64) == "fma64"
     with pytest.raises(ValueError, match="head_dim"):
@@ -198,6 +199,60 @@ def test_backward_variant_by_alignment(case, aligned):
     got = fa.aligned_for_wgmma(*qkv.unbind(dim=2), do)
     assert got is aligned
     assert fa.backward_variant(torch.bfloat16, d, aligned=got) == ("wgmma" if aligned else "fma")
+
+
+@pytest.mark.parametrize("dtype,aligned,want", [
+    (torch.bfloat16, True, "wgmma"), (torch.bfloat16, False, "fma"),
+    (torch.float32, True, "fma"), (torch.float32, False, "fma"),
+])
+def test_forward_variant_by_dtype_and_alignment_at_every_head_width(dtype, aligned, want):
+    """The forward kernel's body: the tensor cores for aligned bfloat16 at
+    every head width 1 .. 128, FMAs for float32 and for views the
+    ``"wgmma"`` body cannot copy 16 bytes at a time."""
+    assert {fa.forward_variant(dtype, d, aligned=aligned) for d in range(1, fa.MAX_HEAD_DIM + 1)} == {want}
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.forward_variant(dtype, fa.MAX_HEAD_DIM + 1, aligned=aligned)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.forward_variant(dtype, 0, aligned=aligned)
+
+
+@pytest.mark.parametrize("case,aligned", [("packed", True), ("packed_d48", True), ("narrow_d20_of_24", True),
+                                          ("packed_d36", False), ("strided", False), ("odd_offset", False)])
+def test_forward_variant_by_alignment(case, aligned):
+    """The forward reads q, k and v alone: the views of
+    ``test_backward_variant_by_alignment`` without dO, and a 20-wide view of
+    a 24-wide projection (aligned: strides multiples of 8)."""
+    b, t, h = 2, 37, 3
+    d = {"packed_d48": 48, "packed_d36": 36, "narrow_d20_of_24": 20}.get(case, 64)
+    qkv = torch.zeros(b, t, 3, h, d, dtype=torch.bfloat16)
+    if case == "strided":
+        qkv = torch.zeros(b, t, 3, h, d + 4, dtype=torch.bfloat16)[..., :d]
+    elif case == "narrow_d20_of_24":
+        qkv = torch.zeros(b, t, 3, h, 24, dtype=torch.bfloat16)[..., :d]
+    elif case == "odd_offset":
+        qkv = torch.zeros(b * t * 3 * h * d + 8, dtype=torch.bfloat16)[1:1 + b * t * 3 * h * d].view(b, t, 3, h, d)
+    got = fa.aligned_for_wgmma(*qkv.unbind(dim=2))
+    assert got is aligned
+    assert fa.forward_variant(torch.bfloat16, d, aligned=got) == ("wgmma" if aligned else "fma")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_cpu_forward_counts_no_launch(dtype):
+    before = (fa.launches, dict(fa.forward_variant_launches))
+    qkv = torch.from_numpy(_qkv(37, 48, seed=1)).to(dtype)
+    o, m, l = fa.flash_forward(qkv, 48**-0.5)
+    po, pm, pl = fa.flash_forward_plain(*qkv.unbind(dim=2), 48**-0.5)
+    assert torch.equal(o, po) and torch.equal(m, pm) and torch.equal(l, pl)
+    assert (fa.launches, dict(fa.forward_variant_launches)) == before
+    assert set(fa.forward_variant_launches) == {"wgmma", "fma"}
+
+
+@pytest.mark.parametrize("variant", ["bogus", "WGMMA", "fma64"])
+def test_a_forward_variant_that_names_no_body_raises(variant):
+    """Checked before the device is looked at: a CPU call raises too."""
+    qkv = torch.from_numpy(_qkv(5, 8, seed=2))
+    with pytest.raises(ValueError, match="none of"):
+        fa.flash_forward(qkv, 0.3, variant=variant)
 
 
 def test_the_cpu_backward_counts_no_launch():
