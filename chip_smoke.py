@@ -71,6 +71,16 @@ batch 32, random seeded weights):
 * the sigmoid: the XLA-rounded pass of ``probs_from_logits`` against its
   plain version on every f32 input (2^32), at the tagger's (32, 8192)
   logits and at (1024, 8192), timed in turns with ``torch.sigmoid``;
+* the measuring entry points, as a user runs them: ``python -m
+  kobato_eyes_tpu_torch.bench`` (the dup headline at 70 000 hashes) in its
+  own process, then ``tools/``'s ``bench_tagger`` (ViT-B/448, the fast
+  forward; a small run under ``--profile``, whose trace ``trace_ops`` reads
+  kernel 1 from), ``mfu_probe`` (einsum and SDPA), ``bench_swin`` (the
+  window kernel, and the residual LayerNorm kernel), ``bench_query`` at
+  70 000 files, ``bench_ann`` at 100 000 x 512 and ``bench_e2e`` at 500
+  images, each in this process through its ``main``, printing its JSON line
+  (where a size is cut from the tool's default, the line before says which
+  and why), with exact kernel launches;
 * multi-device, on a mesh of four entries (the cards when there are
   several, else ``cuda:0`` four times): the ViT-B/448 tagger at data=4 and
   at data=2, model=2, the ViT-B/448 train step at data=2, model=2 (3
@@ -91,7 +101,8 @@ tagger forwards add to kernel 1's and the GELU pass's, the sharded train
 steps and the dry run to both GELU passes'; the sigmoid's sums the ViT and
 SwinV2 index runs, the multi-device forwards and the dry run; the flash
 forward's the flash ViT forward and train steps, the flash backward
-kernels' the train steps. It
+kernels' the train steps; the bench phase's add to kernels 1, 3 and 4, the
+GELU pass and the sigmoid pass. It
 checks each tagger's fast forward against its exact forward, and prints one JSON line of kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. Any failed phase exits
 non-zero before the last line. Without a CUDA device, or without the
@@ -255,18 +266,6 @@ def ptxas_registers(source: str) -> dict[str, int]:
             regs[name] = int(hit.group(1))
             name = None
     return regs
-
-
-def short_kernel_name(mangled: str) -> str:
-    """``attn_wgmma_kernel<64,1,1>`` for the mangled name of a kernel whose
-    template arguments are ints, bools and element types."""
-    import re
-
-    hit = re.search(r"\d([a-z][a-z_]*_kernel)I(.*?)EEv", mangled)
-    if hit:
-        parts = re.findall(r"L[ib](\d+)|13__nv_(bfloat16)|^(f)|(?<=E)(f)", hit.group(2))
-        return f"{hit.group(1)}<{','.join(next(a for a in g if a) for g in parts)}>"
-    return mangled
 
 
 # ---------------------------------------------------------------------------
@@ -1174,6 +1173,7 @@ def flash_attention_phase() -> tuple[dict, dict, dict]:
     import torch.nn.functional as F
 
     from kobato_eyes_tpu_torch.ops import flash_attention as fa
+    from kobato_eyes_tpu_torch.tools.trace_ops import short_kernel_name
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain version in IEEE f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1682,27 +1682,6 @@ def pairwise_hamming_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def synth_hashes(n: int, seed: int) -> "np.ndarray":
-    """Synthetic pHash population with planted near-duplicate clusters: 30%
-    of the hashes copy a random original and flip 0..6 random bits (the
-    repository's dup benchmark population, ``bench.py:synth_hashes``)."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    n_dups = int(n * 0.3)
-    n_orig = n - n_dups
-    originals = rng.integers(0, 1 << 64, size=n_orig, dtype=np.uint64)
-    src = rng.integers(0, n_orig, size=n_dups)
-    dups = originals[src].copy()
-    for i in range(n_dups):
-        k = int(rng.integers(0, 7))
-        for bit in rng.integers(0, 64, size=k):
-            dups[i] ^= np.uint64(1) << np.uint64(bit)
-    out = np.concatenate([originals, dups])
-    rng.shuffle(out)
-    return out
-
-
 def _dup_timers() -> str:
     from kobato_eyes_tpu_torch.utils.metrics import metrics
 
@@ -1740,6 +1719,7 @@ def dup_scan_phase() -> int:
 
     import numpy as np
 
+    from kobato_eyes_tpu_torch.bench import synth_hashes
     from kobato_eyes_tpu_torch.dup import audit
     from kobato_eyes_tpu_torch.dup.cpu_ref import CpuDuplicateScanner
     from kobato_eyes_tpu_torch.dup.engine import TpuDuplicateScanner, cluster_ids
@@ -4167,6 +4147,7 @@ def _md_dup_phase(mesh) -> None:
 
     import numpy as np
 
+    from kobato_eyes_tpu_torch.bench import synth_hashes
     from kobato_eyes_tpu_torch.dup.engine import TpuDuplicateScanner, cluster_ids
     from kobato_eyes_tpu_torch.dup.types import DuplicateFileMeta, DuplicateScanConfig
 
@@ -4308,6 +4289,177 @@ def multidevice_phase(work: Path) -> tuple[int, int, int, int]:
     return attn + dry[0], act + train_act + dry[1], sigmoid + dry[2], train_backward + dry[3]
 
 
+# ---------------------------------------------------------------------------
+# The measuring entry points: kobato_eyes_tpu_torch.bench and tools/
+# ---------------------------------------------------------------------------
+
+# sizes the bench phase cuts from the tools' defaults (each printed, with
+# its reason, on the line before the tool's JSON line)
+BENCH_QUERY_REPEATS = 3
+BENCH_E2E_IMAGES = 500
+BENCH_PROFILE_IMAGES = 64
+BENCH_COUNTERS = ("attention", "window", "layernorm", "gelu", "sigmoid")
+
+
+def _bench_counters(reset: bool = False) -> dict[str, int]:
+    """The launch counts of the kernels the tools run (kernel 1, kernel 3,
+    kernel 4, the GELU pass, the sigmoid pass); ``reset`` sets them to 0."""
+    from kobato_eyes_tpu_torch.ops import attention, gelu, layernorm_residual, window_attention, xla_math
+
+    if reset:
+        attention.launches = window_attention.launches = layernorm_residual.launches = 0
+        gelu.launches = xla_math.launches = 0
+    return dict(zip(BENCH_COUNTERS, (attention.launches, window_attention.launches,
+                                     layernorm_residual.launches, gelu.launches, xla_math.launches)))
+
+
+def run_tool(name: str, argv: list[str], cut: str = "") -> tuple[dict, dict[str, int]]:
+    """``kobato_eyes_tpu_torch.<name>.main(argv)`` in this process with its
+    standard output captured. Prints ``cut`` (a size cut from the tool's
+    defaults, and why), the tool's JSON line, then its wall and launches;
+    returns the document and the launches of the run."""
+    import importlib
+
+    module = importlib.import_module(f"kobato_eyes_tpu_torch.{name}")
+    _bench_counters(reset=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv)
+    synchronize()
+    wall = time.perf_counter() - t0
+    counts = _bench_counters()
+    docs = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    check(rc == 0, f"{name} {argv} exited {rc}")
+    check(len(docs) == 1, f"{name} {argv} printed {len(docs)} JSON documents")
+    if cut:
+        print(cut)
+    print(json.dumps(docs[0]))
+    print(f"bench {name} {' '.join(argv)}: {wall:.1f} s, launches {counts}")
+    return docs[0], counts
+
+
+def _expect_launches(name: str, counts: dict[str, int], **want: int) -> None:
+    for key, n in want.items():
+        check(counts[key] == n, f"{name}: {key} launches {counts[key]} != {n}")
+
+
+def bench_phase(work: Path) -> dict[str, int]:
+    """The port's measuring entry points on the card, through the entry
+    points a user calls: ``python -m kobato_eyes_tpu_torch.bench`` (the dup
+    headline at 70 000 hashes) as a subprocess, then each of ``tools/`` in
+    this process through its ``main``: ``bench_tagger`` (ViT-B/448 with the
+    fast forward, and a small run under ``--profile`` whose trace
+    ``trace_ops`` must read kernel 1 from), ``mfu_probe`` (einsum and SDPA),
+    ``bench_swin`` (the window kernel, and with the residual LayerNorm
+    kernel), ``bench_query`` at 70 000 files, ``bench_ann`` at 100 000 x 512
+    and ``bench_e2e``. Checks every tool's exit, its one JSON document, the
+    crossover probe, MFU in (0, 100%], exact kernel launches, 0 query
+    mismatches (the tool asserts them), recall and the planted duplicates.
+    Returns the phase's launches by counter (``BENCH_COUNTERS``)."""
+    from kobato_eyes_tpu_torch.tools import trace_ops
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(BENCH_COUNTERS, 0)
+
+    def add(counts: dict[str, int]) -> None:
+        for key in total:
+            total[key] += counts[key]
+
+    # the dup headline, as a user runs it (its own process)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "kobato_eyes_tpu_torch.bench"], cwd=REPO,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"python -m kobato_eyes_tpu_torch.bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    docs = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    check(len(docs) == 1, f"python -m kobato_eyes_tpu_torch.bench printed {len(docs)} JSON documents")
+    dup = docs[0]
+    print(json.dumps(dup))
+    print(f"bench python -m kobato_eyes_tpu_torch.bench: {wall:.1f} s")
+    for line in proc.stderr.splitlines():
+        if line.startswith(("warm ", "device-path ", "cold ")):
+            print(f"  {line}")
+    check(dup["metric"] == f"dup_scan_pairs_per_sec_{N_DUP // 1000}k", f"bench metric {dup['metric']}")
+    check("error" not in dup["crossover_probe"], f"bench crossover probe failed: {dup['crossover_probe']}")
+    check(dup["value"] > 0 and dup["vs_baseline"] > 0, "bench: no rate")
+
+    # tagger throughput: 256 synthetic images at batch 32, so 8 batches: 4
+    # latency batches (1 warm-up + 3), 7 timed, 1 counted forward
+    depth, batches = 12, N_IMAGES // BATCH
+    doc, counts = run_tool("tools.bench_tagger", [])
+    forwards = min(batches, 4) + (batches - 1) + 1
+    _expect_launches("bench_tagger", counts, attention=depth * forwards, gelu=depth * forwards,
+                     sigmoid=forwards, window=0, layernorm=0)
+    mfu = doc["roofline"]["mfu"]
+    check(mfu is not None and 0 < mfu <= 1, f"bench_tagger MFU {mfu}")
+    add(counts)
+    prof = work / "bench_tagger_profile"
+    _, counts = run_tool("tools.bench_tagger", ["--synthetic", str(BENCH_PROFILE_IMAGES), "--profile", str(prof)],
+                         cut=f"bench_tagger --synthetic {BENCH_PROFILE_IMAGES} --profile: a second, small run "
+                             "for the trace (the profiler's own cost stays out of the run above)")
+    small = BENCH_PROFILE_IMAGES // BATCH
+    forwards = min(small, 4) + (small - 1) + 1
+    _expect_launches("bench_tagger --profile", counts, attention=depth * forwards)
+    add(counts)
+    rows = trace_ops.summarize(trace_ops.load_trace(prof), device="cuda")
+    check(rows, "the bench_tagger trace holds no device events")
+    wgmma = [(name, n) for name, _, n in rows if "attn_wgmma_kernel" in name]
+    check(wgmma and sum(n for _, n in wgmma) == depth * (small - 1),
+          f"trace_ops: kernel 1 in the bench_tagger trace {wgmma}")
+    grand = sum(us for _, us, _ in rows)
+    print(f"trace_ops: device events {sum(n for _, _, n in rows)}, total {grand / 1e3:.2f} ms")
+    for name, us, n in rows[:6]:
+        print(f"  {us / 1e3:9.2f} ms  {100 * us / grand:5.1f}%  x{n:<5d} {name}")
+
+    # the forward probes: 1 first call + 3 warm + 3 chains of 20 forwards
+    forwards = 1 + 3 + 3 * 20
+    for argv in ([], ["--attn", "fused"]):
+        doc, counts = run_tool("tools.mfu_probe", argv)
+        _expect_launches("mfu_probe", counts, attention=0, gelu=depth * forwards, sigmoid=0)
+        check(doc["mfu_pct"] is not None and 0 < doc["mfu_pct"] <= 100, f"mfu_probe {argv} MFU {doc['mfu_pct']}")
+        add(counts)
+    blocks = sum(SWIN_B448_DEPTHS)
+    for argv, ln_launches in (([], 0), (["--ln", "pallas_residual"], 2 * blocks * forwards)):
+        doc, counts = run_tool("tools.bench_swin", argv)
+        _expect_launches("bench_swin", counts, window=blocks * forwards, layernorm=ln_launches,
+                         gelu=blocks * forwards, attention=0)
+        check(doc["mfu_pct"] is not None and 0 < doc["mfu_pct"] <= 100, f"bench_swin {argv} MFU {doc['mfu_pct']}")
+        add(counts)
+
+    # query latency at the tool's 70 000 files
+    doc, counts = run_tool(
+        "tools.bench_query", ["--repeats", str(BENCH_QUERY_REPEATS)],
+        cut=f"bench_query --repeats {BENCH_QUERY_REPEATS} (the tool's default 20): at 70 000 files the "
+            "SQL backend's queries would take most of the phase at 20 repeats")
+    check(doc["files"] == 70_000 and doc["value"] > 0, f"bench_query {doc['files']} files")
+    add(counts)
+
+    # ANN at the tool's 100 000 x 512, the device structures
+    doc, counts = run_tool(
+        "tools.bench_ann", ["--skip-hnsw"],
+        cut="bench_ann --skip-hnsw (the tool's own switch): the host's HNSW build at 100 000 x 512 would "
+            "take tens of seconds of the phase; the ANN phase builds HNSW at 20 000")
+    check(doc["flat"]["recall"] == 1.0 and doc["ivf"]["recall"] >= 0.9, f"bench_ann recall {doc['ivf']}")
+    add(counts)
+
+    # the whole system at batch 32 (the refresh adds 25 images: one more batch)
+    doc, counts = run_tool(
+        "tools.bench_e2e", ["--images", str(BENCH_E2E_IMAGES), "--workdir", str(work / "bench_e2e")],
+        cut=f"bench_e2e --images {BENCH_E2E_IMAGES} (the tool's default 5000): generating and indexing 5000 "
+            "images is host decode for minutes, past the phase's time")
+    forwards = math.ceil(BENCH_E2E_IMAGES / BATCH) + math.ceil(25 / BATCH)
+    _expect_launches("bench_e2e", counts, attention=depth * forwards, sigmoid=forwards)
+    checks = doc["checks"]
+    check(checks["indexed"]["tagged"] == BENCH_E2E_IMAGES, f"bench_e2e indexed {checks['indexed']}")
+    check(checks["dup"]["planted_clustered"] == checks["dup"]["planted_pairs"], f"bench_e2e dup {checks['dup']}")
+    check(checks["ann"]["flat_self_recall"] == 1.0, f"bench_e2e ann {checks['ann']}")
+    add(counts)
+    print(f"bench phase: {time.perf_counter() - t_phase:.1f} s, launches {total}")
+    return total
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -4370,11 +4522,14 @@ def main() -> int:
         attn_separate["launches"] = sep_vit + sep_swin + sep_ann + sep_up
         act["launches"] = gelu_vit + gelu_swin + gelu_train
         hamming["launches"] += serve_phase(work)
+        bench = bench_phase(work)
         md_attn, md_gelu, md_sigmoid, md_gelu_backward = multidevice_phase(work)
-        attn["launches"] += md_attn
-        act["launches"] += md_gelu
+        attn["launches"] += md_attn + bench["attention"]
+        window["launches"] += bench["window"]
+        ln["launches"] += bench["layernorm"]
+        act["launches"] += md_gelu + bench["gelu"]
         act_backward["launches"] += md_gelu_backward
-        sigmoid["launches"] = sig_vit + sig_swin + md_sigmoid
+        sigmoid["launches"] = sig_vit + sig_swin + md_sigmoid + bench["sigmoid"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")

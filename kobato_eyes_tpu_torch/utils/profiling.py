@@ -51,6 +51,23 @@ def device_peak_flops() -> float | None:
     return None
 
 
+def peak_flops_for(device: Any) -> float | None:
+    """Peak bf16 FLOP/s of the card a measurement ran on: None for the CPU
+    (a CPU run has no device rate to hold it against); on a CUDA device its
+    published peak, and a card missing from :data:`PEAK_BF16_FLOPS` raises,
+    so that no number is ever held against a peak of another device."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    kind = torch.cuda.get_device_name(device).lower()
+    for key, peak in PEAK_BF16_FLOPS.items():
+        if key in kind:
+            return peak
+    raise RuntimeError(f"no published bf16 peak for {kind!r}; add it to PEAK_BF16_FLOPS")
+
+
 @contextlib.contextmanager
 def device_trace(outdir: str | Path | None) -> Iterator[None]:
     """Capture a torch.profiler trace into ``outdir`` (no-op when None).
@@ -125,11 +142,13 @@ def mfu(flops: float, seconds: float, peak_flops: float | None = None) -> float 
     return (flops / seconds) / peak
 
 
-def roofline_summary(flops: float, seconds: float) -> dict[str, float | None]:
-    """Achieved TFLOP/s + MFU for a measured (flops, wall) pair."""
+def roofline_summary(flops: float, seconds: float, *, device: Any = None) -> dict[str, float | None]:
+    """Achieved TFLOP/s + MFU for a measured (flops, wall) pair. ``device``:
+    the device the wall was measured on, whose peak (:func:`peak_flops_for`)
+    the MFU is held against; without it, the first CUDA device's, if known."""
     achieved = flops / seconds if seconds > 0 else 0.0
-    util = mfu(flops, seconds)
-    peak = device_peak_flops()
+    peak = device_peak_flops() if device is None else peak_flops_for(device)
+    util = mfu(flops, seconds, peak) if peak else None
     return {
         "flops": flops,
         "seconds": seconds,

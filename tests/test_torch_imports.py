@@ -1,8 +1,9 @@
 """The PyTorch/CUDA port stands alone: no JAX, nothing of the JAX package.
 
-* every port module imports in a process where ``jax`` cannot be imported;
-* no port module (nor ``chip_smoke.py``) names ``kobato_eyes_tpu`` or a JAX
-  library in an import;
+* every port module imports in a process where ``jax`` (and the repository's
+  root ``bench`` / ``tools``) cannot be imported;
+* no port module (nor ``chip_smoke.py``) names ``kobato_eyes_tpu``, a JAX
+  library or the repository's root ``bench`` / ``tools`` in an import;
 * the port keeps the JAX package's layering;
 * each host module the port copies equals its JAX counterpart after the
   package rename, and so does each host function a port module copies; the
@@ -23,7 +24,9 @@ ROOT = Path(__file__).parent.parent
 PORT = ROOT / "kobato_eyes_tpu_torch"
 JAXPKG = ROOT / "kobato_eyes_tpu"
 
-FORBIDDEN_ROOTS = {"kobato_eyes_tpu", "jax", "jaxlib", "flax", "optax", "orbax"}
+# the repository's own measuring entry points (root ``bench.py``, ``tools/``)
+# import the JAX package: the port's counterparts keep their own copies
+FORBIDDEN_ROOTS = {"kobato_eyes_tpu", "jax", "jaxlib", "flax", "optax", "orbax", "bench", "tools"}
 
 # modules the jax-blocked import must have reached, the SwinV2, dup,
 # query-engine, ANN, checkpoint / upkeep, server / training / refine and
@@ -80,6 +83,14 @@ REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.query.sharded",
     "kobato_eyes_tpu_torch.utils.profiling",
     "kobato_eyes_tpu_torch.parallel.dryrun",
+    "kobato_eyes_tpu_torch.bench",
+    "kobato_eyes_tpu_torch.tools.trace_ops",
+    "kobato_eyes_tpu_torch.tools.bench_tagger",
+    "kobato_eyes_tpu_torch.tools.mfu_probe",
+    "kobato_eyes_tpu_torch.tools.bench_swin",
+    "kobato_eyes_tpu_torch.tools.bench_query",
+    "kobato_eyes_tpu_torch.tools.bench_ann",
+    "kobato_eyes_tpu_torch.tools.bench_e2e",
 ]
 
 COPIED = [
@@ -129,6 +140,9 @@ LAYERS: dict[str, int] = {
     "services": 4,
     "core": 5,
     "cli": 6,
+    # the measuring entry points drive every layer, above the CLI
+    "bench": 7,
+    "tools": 7,
 }
 # a module that drives every layer, as the CLI does, ranks with the CLI
 ENTRY_POINTS: dict[str, int] = {
@@ -158,7 +172,7 @@ def _imported_modules(path: Path) -> set[str]:
 def test_port_imports_with_jax_blocked():
     code = (
         "import importlib, pkgutil, sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'bench', 'tools'):\n"
         "    sys.modules[name] = None\n"
         "import kobato_eyes_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
