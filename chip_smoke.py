@@ -20,9 +20,12 @@ batch 32, random seeded weights):
   tagger's saved weights;
 * dup: the dup benchmark's 70 000-hash population through
   ``TpuDuplicateScanner`` on the host route (C++ band scan) and the device
-  route (resident bitmask scan), the threshold sweep, the CPU oracle on a
+  route (resident bitmask scan), the threshold sweep (thresholds 2, 4 and 8
+  also against a scan at each alone), the CPU oracle on a
   subset, a 1M population through the resident multi-word scan against the
-  host scan, and ``audit_clusters`` over the 70k clusters with the
+  host scan, 2^20 + 64 hashes with one 40-deep bucket and a pair planted
+  past index 2^20 through the multi-word scan at threshold 0, and
+  ``audit_clusters`` over the 70k clusters with the
   all-pairs Hamming kernel; then ``index`` (fused signatures), ``dup
   --sweep --audit`` and ``dup --refine`` through the CLI over 48 seeded
   images with re-encodes and resizes;
@@ -77,10 +80,13 @@ batch 32, random seeded weights):
   forward; a small run under ``--profile``, whose trace ``trace_ops`` reads
   kernel 1 from), ``mfu_probe`` (einsum and SDPA), ``bench_swin`` (the
   window kernel, and the residual LayerNorm kernel), ``bench_query`` at
-  70 000 files, ``bench_ann`` at 100 000 x 512 and ``bench_e2e`` at 500
-  images, each in this process through its ``main``, printing its JSON line
-  (where a size is cut from the tool's default, the line before says which
-  and why), with exact kernel launches;
+  70 000 files, ``bench_ann`` at 100 000 x 512, the host's input pipeline
+  (``bench_decode``) on the 500-image library that ``bench_e2e`` then
+  indexes, and the catalog writer (``bench_writer``, 70 000 files x 30 tags,
+  unsafe-fast and WAL), each in this process through its ``main``, printing
+  its JSON line (where a size is cut from the tool's default, the line
+  before says which and why), with exact kernel launches (none for the two
+  host tools);
 * multi-device, on a mesh of four entries (the cards when there are
   several, else ``cuda:0`` four times): the ViT-B/448 tagger at data=4 and
   at data=2, model=2, the ViT-B/448 train step at data=2, model=2 (3
@@ -113,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import shutil
@@ -147,6 +154,9 @@ N_LABELS = 8192
 # crossover, the audit's batch bound, and the CLI library's base images
 N_DUP = 70_000
 N_DUP_BIG = 1_000_000
+N_DUP_WIDE = (1 << 20) + 64  # past the 2^20 rows an old row packing capped
+WIDE_BUCKET = 40  # one bucket this deep forces the window over 32
+SWEEP_SOLO = (2, 4, 8)  # sweep thresholds held to a scan at each alone
 DUP_SEED = 1234
 AUDIT_BATCH = 4096
 DUP_LIB_IMAGES = 48
@@ -1768,6 +1778,12 @@ def dup_scan_phase() -> int:
     for t in range(9):
         check(cluster_ids(sweep[t]) == cluster_ids(host_sweep[t]), f"sweep threshold {t}: device != host")
     print("dup sweep: clusters per threshold " + ", ".join(f"{t}:{len(sweep[t])}" for t in range(9)))
+    # one sweep serves every slider value: each equals a scan at that threshold alone
+    # (tests/tpu/test_tpu_smoke.py's test_threshold_sweep_on_tpu)
+    for t in SWEEP_SOLO:
+        solo = TpuDuplicateScanner(DuplicateScanConfig(hamming_threshold=t), device=DEVICE, host_scan_max=0)
+        check(cluster_ids(sweep[t]) == cluster_ids(solo.build_clusters(files)), f"sweep threshold {t} != a scan at {t}")
+    print(f"dup sweep: thresholds {SWEEP_SOLO} equal device-route scans at each threshold alone")
 
     subset = files[:5000]
     want = cluster_ids(CpuDuplicateScanner(config).build_clusters(subset))
@@ -1796,6 +1812,31 @@ def dup_scan_phase() -> int:
     check(len(ei) == len(hi) and np.array_equal(ei[order_d], hi[order_h])
           and np.array_equal(ej[order_d], hj[order_h]) and np.array_equal(ed[order_d], hd[order_h]),
           "1M device-scan edges != host_window_scan edges")
+
+    # the wide-window path past 2^20 rows (tests/tpu/test_tpu_smoke.py's
+    # test_wide_window_past_old_packing_cap_on_tpu): one 40-deep bucket forces
+    # a window over 32, and a pair planted above index 2^20 catches any index
+    # packing that drops bit 20
+    wide = np.random.default_rng(DUP_SEED + 4).integers(0, 1 << 64, size=N_DUP_WIDE, dtype=np.uint64)
+    wide[:WIDE_BUCKET] = wide[0]
+    planted = (1 << 20) + 11
+    wide[planted] = wide[planted - 1]
+    scanner = hamming.BandedHammingScanner(device=DEVICE)
+    check(scanner.host_scan_max < N_DUP_WIDE, "the 2^20 + 64 population would route to the host")
+    t0 = time.perf_counter()
+    wi, wj, wd = scanner.scan(wide, hamming_threshold=0)
+    wall = time.perf_counter() - t0
+    pairs = set(zip(wi.tolist(), wj.tolist()))
+    bucket = set(itertools.combinations(range(WIDE_BUCKET), 2))
+    print(f"dup scan {N_DUP_WIDE} device route, threshold 0: {len(pairs)} edges, window "
+          f"{scanner.last_window}, wall {wall * 1e3:.1f} ms; the {WIDE_BUCKET}-bucket's "
+          f"{len(bucket & pairs)} of {len(bucket)} pairs, ({planted - 1}, {planted}) "
+          f"{'found' if (planted - 1, planted) in pairs else 'missing'}")
+    check(scanner.last_window > 32, f"2^20 + 64 window {scanner.last_window} <= 32: the multi-word scan did not run")
+    check(bucket <= pairs, f"the {WIDE_BUCKET}-bucket's pairs missing: {len(bucket - pairs)}")
+    check((planted - 1, planted) in pairs, f"the pair above 2^20 ({planted - 1}, {planted}) missing")
+    check(len(pairs) == len(bucket) + 1, f"{len(pairs)} edges at threshold 0, not {len(bucket) + 1}")
+    check(bool((wd == 0).all()) and bool((wi < wj).all()), "wide-window edges: d != 0 or i >= j")
 
     clusters = runs["host"][1]
     shapes = _audit_batches(clusters, AUDIT_BATCH)
@@ -4299,6 +4340,12 @@ BENCH_QUERY_REPEATS = 3
 BENCH_E2E_IMAGES = 500
 BENCH_PROFILE_IMAGES = 64
 BENCH_COUNTERS = ("attention", "window", "layernorm", "gelu", "sigmoid")
+# the host tools' documents (the JAX tools' keys)
+DECODE_KEYS = {"metric", "images", "decode_s", "decode_imgs_per_s", "prepare_s", "prepare_imgs_per_s",
+               "decode_prepare_s", "decode_prepare_imgs_per_s", "loader_s", "loader_imgs_per_s",
+               "sha256_imgs_per_s", "ceiling_vs_reference"}
+WRITER_KEYS = {"metric", "value", "unit", "files", "rows", "write_s", "files_per_sec", "file_upsert_s", "profile"}
+WRITER_FILES, WRITER_TAGS, WRITER_VOCAB = 70_000, 30, 12_000  # bench_writer's defaults
 
 
 def _bench_counters(reset: bool = False) -> dict[str, int]:
@@ -4344,6 +4391,21 @@ def _expect_launches(name: str, counts: dict[str, int], **want: int) -> None:
         check(counts[key] == n, f"{name}: {key} launches {counts[key]} != {n}")
 
 
+def _writer_rows(files: int, tags_per_file: int, vocab: int) -> int:
+    """The ``file_tags`` rows ``bench_writer`` writes: its ``default_rng(0)``
+    draws (a file's tag indices, repeats dropped, then a score for each),
+    replayed without building the items."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rows = 0
+    for _ in range(files):
+        k = len(np.unique(rng.integers(0, vocab, size=tags_per_file)))
+        rng.uniform(0.1, 1, size=k)
+        rows += k
+    return rows
+
+
 def bench_phase(work: Path) -> dict[str, int]:
     """The port's measuring entry points on the card, through the entry
     points a user calls: ``python -m kobato_eyes_tpu_torch.bench`` (the dup
@@ -4352,10 +4414,13 @@ def bench_phase(work: Path) -> dict[str, int]:
     fast forward, and a small run under ``--profile`` whose trace
     ``trace_ops`` must read kernel 1 from), ``mfu_probe`` (einsum and SDPA),
     ``bench_swin`` (the window kernel, and with the residual LayerNorm
-    kernel), ``bench_query`` at 70 000 files, ``bench_ann`` at 100 000 x 512
-    and ``bench_e2e``. Checks every tool's exit, its one JSON document, the
-    crossover probe, MFU in (0, 100%], exact kernel launches, 0 query
-    mismatches (the tool asserts them), recall and the planted duplicates.
+    kernel), ``bench_query`` at 70 000 files, ``bench_ann`` at 100 000 x 512,
+    ``bench_decode`` on ``bench_e2e``'s library, ``bench_writer`` in both
+    profiles and ``bench_e2e``. Checks every tool's exit, its one JSON
+    document and (for the host tools) its keys, the crossover probe, MFU in
+    (0, 100%], exact kernel launches (none for the host tools), 0 query
+    mismatches (the tool asserts them), the writer's rows against its items,
+    recall and the planted duplicates.
     Returns the phase's launches by counter (``BENCH_COUNTERS``)."""
     from kobato_eyes_tpu_torch.tools import trace_ops
 
@@ -4444,9 +4509,40 @@ def bench_phase(work: Path) -> dict[str, int]:
     check(doc["flat"]["recall"] == 1.0 and doc["ivf"]["recall"] >= 0.9, f"bench_ann recall {doc['ivf']}")
     add(counts)
 
+    # the host's input pipeline on the library bench_e2e indexes next (it
+    # generates the library; bench_e2e finds it cached, before its refresh
+    # adds files): no device in the loop
+    e2e_work = work / "bench_e2e"
+    decode, counts = run_tool(
+        "tools.bench_decode", ["--images", str(BENCH_E2E_IMAGES), "--workdir", str(e2e_work)],
+        cut=f"bench_decode --images {BENCH_E2E_IMAGES} (the tool's default 1000): the library bench_e2e indexes "
+            "at its own cut size, generated once for both")
+    _expect_launches("bench_decode", counts, **dict.fromkeys(BENCH_COUNTERS, 0))
+    check(set(decode) == DECODE_KEYS and decode["metric"] == "decode_ceiling", f"bench_decode keys {sorted(decode)}")
+    check(decode["images"] == BENCH_E2E_IMAGES, f"bench_decode images {decode['images']}")
+    check(all(decode[k] > 0 for k in DECODE_KEYS if k.endswith("_per_s")), "bench_decode: a rate is not positive")
+
+    # the catalog writer at the tool's 70 000 files x 30 tags, both profiles;
+    # its catalogs go under the phase's work directory
+    rows = _writer_rows(WRITER_FILES, WRITER_TAGS, WRITER_VOCAB)
+    writer = {}
+    for argv, profile in (([], "unsafe-fast"), (["--standard"], "standard-wal")):
+        old_tempdir = tempfile.tempdir
+        tempfile.tempdir = str(work)
+        try:
+            doc, counts = run_tool("tools.bench_writer", argv)
+        finally:
+            tempfile.tempdir = old_tempdir
+        _expect_launches("bench_writer", counts, **dict.fromkeys(BENCH_COUNTERS, 0))
+        check(set(doc) == WRITER_KEYS and doc["metric"] == "bulk_write_rows_per_sec", f"bench_writer keys {sorted(doc)}")
+        check(doc["profile"] == profile and doc["files"] == WRITER_FILES, f"bench_writer {doc['profile']} {doc['files']}")
+        check(doc["rows"] == rows, f"bench_writer {profile}: {doc['rows']} rows, the items hold {rows} tags")
+        check(doc["value"] > 0 and doc["files_per_sec"] > 0, f"bench_writer {profile}: no rate")
+        writer[profile] = doc
+
     # the whole system at batch 32 (the refresh adds 25 images: one more batch)
     doc, counts = run_tool(
-        "tools.bench_e2e", ["--images", str(BENCH_E2E_IMAGES), "--workdir", str(work / "bench_e2e")],
+        "tools.bench_e2e", ["--images", str(BENCH_E2E_IMAGES), "--workdir", str(e2e_work)],
         cut=f"bench_e2e --images {BENCH_E2E_IMAGES} (the tool's default 5000): generating and indexing 5000 "
             "images is host decode for minutes, past the phase's time")
     forwards = math.ceil(BENCH_E2E_IMAGES / BATCH) + math.ceil(25 / BATCH)
@@ -4456,6 +4552,13 @@ def bench_phase(work: Path) -> dict[str, int]:
     check(checks["dup"]["planted_clustered"] == checks["dup"]["planted_pairs"], f"bench_e2e dup {checks['dup']}")
     check(checks["ann"]["flat_self_recall"] == 1.0, f"bench_e2e ann {checks['ann']}")
     add(counts)
+    # the cold index beside the host stages that could set its pace, on one library
+    print(f"host split of the cold index ({BENCH_E2E_IMAGES} images): bench_e2e index "
+          f"{doc['phases']['index_imgs_per_s']} images/s; decode {decode['decode_imgs_per_s']}, prepare "
+          f"{decode['prepare_imgs_per_s']}, decode+prepare {decode['decode_prepare_imgs_per_s']} (one thread), "
+          f"loader {decode['loader_imgs_per_s']} (4 io workers), sha256 {decode['sha256_imgs_per_s']} images/s; "
+          f"writer {writer['unsafe-fast']['files_per_sec']} / {writer['standard-wal']['files_per_sec']} files/s, "
+          f"{writer['unsafe-fast']['value']} / {writer['standard-wal']['value']} rows/s (unsafe-fast / WAL)")
     print(f"bench phase: {time.perf_counter() - t_phase:.1f} s, launches {total}")
     return total
 

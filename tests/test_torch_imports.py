@@ -5,8 +5,8 @@
 * no port module (nor ``chip_smoke.py``) names ``kobato_eyes_tpu``, a JAX
   library or the repository's root ``bench`` / ``tools`` in an import;
 * the port keeps the JAX package's layering;
-* each host module the port copies equals its JAX counterpart after the
-  package rename, and so does each host function a port module copies; the
+* each host module the port copies equals its JAX counterpart (the root
+  ``tools/migrate_data.py`` for the port's) after the package rename, and so does each host function a port module copies; the
   copied C++ sources equal theirs byte for byte.
 """
 
@@ -91,6 +91,10 @@ REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.tools.bench_query",
     "kobato_eyes_tpu_torch.tools.bench_ann",
     "kobato_eyes_tpu_torch.tools.bench_e2e",
+    "kobato_eyes_tpu_torch.tools.bench_decode",
+    "kobato_eyes_tpu_torch.tools.bench_writer",
+    "kobato_eyes_tpu_torch.tools.migrate_data",
+    "kobato_eyes_tpu_torch.tools.coverage_gate",
 ]
 
 COPIED = [
@@ -112,7 +116,10 @@ COPIED = [
     "index/hnsw.py", "core/pipeline/embed_stage.py",
     "models/onnx_import.py", "models/inspection.py", "core/jobs.py", "db/admin.py",
     "utils/crash.py", "dup/cluster.py",
+    "tools/migrate_data.py",
 ]
+# copies whose original is not in the JAX package (the repository's root ``tools/``)
+ORIGINALS = {"tools/migrate_data.py": ROOT / "tools" / "migrate_data.py"}
 # host code a port module copies from its JAX counterpart: (module, top-level
 # function or class), equal after the package rename
 COPIED_DEFINITIONS = [
@@ -229,7 +236,7 @@ def test_no_upward_imports():
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_equals_reference(rel):
-    original = (JAXPKG / rel).read_text(encoding="utf-8")
+    original = ORIGINALS.get(rel, JAXPKG / rel).read_text(encoding="utf-8")
     expected = re.sub(r"\bkobato_eyes_tpu\b", "kobato_eyes_tpu_torch", original)
     assert (PORT / rel).read_text(encoding="utf-8") == expected
 
