@@ -31,7 +31,6 @@ import dataclasses
 import hashlib
 import json
 import logging
-import time
 from pathlib import Path
 from typing import Any, Callable, Mapping, Sequence
 
@@ -62,7 +61,7 @@ from kobato_eyes_tpu_torch.models.postprocess import (
 from kobato_eyes_tpu_torch.models.preprocess import PreprocessSpec, normalize_on_device, prepare_batch
 from kobato_eyes_tpu_torch.models.swin import SwinConfig, SwinV2, init_swin_, swin_config
 from kobato_eyes_tpu_torch.models.vit import ViT, ViTConfig, init_vit_, vit_config
-from kobato_eyes_tpu_torch.utils.metrics import metrics
+from kobato_eyes_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -307,10 +306,11 @@ class TorchTagger:
         device (the fused tag+embed lane's one upload) is used as it is."""
         if self._mesh_forward is not None:
             return self._forward_probs_mesh(batch_u8)
-        if isinstance(batch_u8, torch.Tensor):
-            batch = batch_u8.to(self.device)
-        else:
-            batch = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
+        with span("tagger.upload"):
+            if isinstance(batch_u8, torch.Tensor):
+                batch = batch_u8.to(self.device)
+            else:
+                batch = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
         with torch.inference_mode():
             x = normalize_on_device(batch, self.spec)
             return probs_from_logits(self._model(x))
@@ -323,8 +323,10 @@ class TorchTagger:
         pad = -n % self._mesh.shape["data"]
         if pad:
             batch = torch.cat([batch, batch.new_zeros((pad, *batch.shape[1:]))])
+        with span("tagger.upload"):
+            shards = shard_batch(batch, self._mesh)
         with torch.inference_mode():
-            blocks = [normalize_on_device(b, self.spec) for b in shard_batch(batch, self._mesh)]
+            blocks = [normalize_on_device(b, self.spec) for b in shards]
             logits = torch.cat([out.to(self.device) for out in self._mesh_forward(blocks)])
             return probs_from_logits(logits)[:n]
 
@@ -346,24 +348,8 @@ class TorchTagger:
         thresholds: ThresholdMap | None = None,
         max_tags: MaxTagsMap | None = None,
     ) -> list[TagResult]:
-        thr_vec = self._thr_vec(thresholds)
-        limits = resolve_limits(self.max_tags, max_tags)
-        t0 = time.perf_counter()
-        probs = self.forward_probs(batch)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        fetched = fetch(self._select_device(probs, thr_vec, limits))
-        results = self._select_host(fetched, limits, thresholds)
-        t2 = time.perf_counter()
-        n = batch.shape[0]
-        metrics.observe("tagger.infer", t1 - t0)
-        metrics.observe("tagger.post", t2 - t1)
-        logger.debug(
-            "%s batch=%d infer=%.1fms post=%.1fms imgs/s=%.1f",
-            self.mode, n, (t1 - t0) * 1e3, (t2 - t1) * 1e3, n / max(t2 - t0, 1e-9),
-        )
-        return results
+        handle = self.dispatch_batch_prepared(batch, thresholds=thresholds, max_tags=max_tags)
+        return self.complete_batch_prepared(handle)
 
     def _thr_dev(self, thr_vec: np.ndarray) -> torch.Tensor:
         """Device copy of the threshold vector, cached by object identity.
@@ -401,15 +387,20 @@ class TorchTagger:
 
         Returns an opaque handle for :meth:`complete_batch_prepared`. Device
         errors surface at completion time (the stream runs asynchronously)."""
-        thr_vec = self._thr_vec(thresholds)
-        limits = resolve_limits(self.max_tags, max_tags)
-        pending = self._select_device(self.forward_probs(batch), thr_vec, limits)
-        return (pending, limits, thresholds)
+        with span("tagger.dispatch"):
+            thr_vec = self._thr_vec(thresholds)
+            limits = resolve_limits(self.max_tags, max_tags)
+            pending = self._select_device(self.forward_probs(batch), thr_vec, limits)
+            return (pending, limits, thresholds)
 
     def complete_batch_prepared(self, handle: tuple) -> list[TagResult]:
         """Fetch + host-side selection for a dispatched batch (one sync)."""
         pending, limits, thresholds = handle
-        return self._select_host(fetch(pending), limits, thresholds)
+        with span("tagger.complete"):
+            with span("tagger.fetch"):
+                fetched = fetch(pending)
+            with span("tagger.select"):
+                return self._select_host(fetched, limits, thresholds)
 
     def infer_batches_prepared(
         self,

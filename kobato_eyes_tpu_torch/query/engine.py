@@ -65,6 +65,7 @@ from kobato_eyes_tpu_torch.query.ast import (
     parse_query,
 )
 from kobato_eyes_tpu_torch.query.sql import normalize_thresholds
+from kobato_eyes_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -589,8 +590,6 @@ def update_epoch(
     name_pos = {n: i for i, n in enumerate(tag_names)}
     prev_tid_map = np.array([name_pos.get(n, -1) for n in prev.tag_names], dtype=np.int64)
 
-    from kobato_eyes_tpu_torch.utils.metrics import metrics as _metrics
-
     # Vocabulary append-only fast path: prior tags must map to identical new
     # tids AND keep their categories (the reused per-category panels bake the
     # old categories in); then surviving postings stay tag-sorted and new
@@ -610,7 +609,6 @@ def update_epoch(
     # Every pass below is O(nnz) on the host; the point of this section is
     # to do as FEW of those passes as possible (measured at 300k/8.8M nnz:
     # the merge, not the device upload, is the delta's cost).
-    _t_merge = time.perf_counter()
     prev_rows = prev.rows_np
     prev_scores = prev.scores_np
     prev_tids = np.repeat(
@@ -669,8 +667,6 @@ def update_epoch(
     else:
         t_idx, r_idx, scores = s_t, s_rows, s_sc
 
-    _metrics.observe("epoch.delta.host_merge", time.perf_counter() - _t_merge)
-    _t_panels = time.perf_counter()
     # Panels: gather unchanged rows from the previous epoch ON DEVICE, set
     # the changed/added rows from their (tiny) postings.
     panels = None
@@ -706,9 +702,6 @@ def update_epoch(
             smax_dev.index_copy_(0, add_dev, _to_device(asmax, device))
             smin_dev.index_copy_(0, add_dev, _to_device(asmin, device))
         panels = (cat_max_dev, cat_present_dev, smax_dev, smin_dev)
-
-    _metrics.observe("epoch.delta.panels", time.perf_counter() - _t_panels)
-    _metrics.observe("epoch.delta.merge", time.perf_counter() - _t_merge)
 
     epoch = _assemble_epoch(
         version=version, file_ids=file_ids, mtimes=mtimes_all, sizes=sizes_all,
@@ -959,43 +952,52 @@ def search_epoch(
     """Execute a query against the epoch; ordering parity with search_files."""
     if order_by not in _ORDERINGS:
         raise ValueError(f"order_by must be one of {_ORDERINGS}")
-    expr = parse_query(query)
-    thr = normalize_thresholds(thresholds or {})
-    positive = (
-        extract_positive_tag_terms(query) if order_by == "relevance" else []
-    )
-    mask = None
-    if mesh is not None and int(mesh.shape.get("data", 1)) > 1:
-        # multi-device: file-row-sharded mask evaluation (query/sharded);
-        # relevance + ordering below are shared host code, so identity with
-        # the single-device path is structural, not re-proved per feature
-        from kobato_eyes_tpu_torch.query.sharded import sharded_mask_words
+    with span("query.search"):
+        sharded = mesh is not None and int(mesh.shape.get("data", 1)) > 1
+        with span("query.plan"):
+            expr = parse_query(query)
+            thr = normalize_thresholds(thresholds or {})
+            positive = (
+                extract_positive_tag_terms(query) if order_by == "relevance" else []
+            )
+            tables = None if sharded else _slot_tables_np(epoch, expr, thr)
+        mask = None
+        if sharded:
+            # multi-device: file-row-sharded mask evaluation (query/sharded);
+            # relevance + ordering below are shared host code, so identity with
+            # the single-device path is structural, not re-proved per feature
+            from kobato_eyes_tpu_torch.query.sharded import sharded_mask_words
 
-        # memoized unshardable verdict: a persistently unshardable
-        # (epoch, mesh) pair must not re-attempt sharding and re-warn on
-        # every query of a hot serving path. Keyed by epoch identity (weak)
-        # holding the mesh ids ruled out for it; a recycled mesh id can at
-        # worst serve single-device, never mis-answer.
-        ruled_out = _UNSHARDABLE_VERDICTS.setdefault(epoch, set())
-        if id(mesh) not in ruled_out:
-            try:
-                mask = _unpack_mask(
-                    sharded_mask_words(epoch, mesh, query, expr, thr),
-                    epoch.num_files,
-                )
-            except ValueError as exc:
-                # e.g. a data axis that cannot divide the padded file rows:
-                # serve the query on the epoch's device rather than failing
-                logger.warning(
-                    "mesh cannot shard this epoch (%s); single-device "
-                    "(verdict cached for this epoch+mesh)", exc,
-                )
-                ruled_out.add(id(mesh))
-    if mask is None:
-        # mask evaluation on the device, then ONE copy of the packed words
-        words = _mask_words(epoch, _slot_tables_np(epoch, expr, thr))
-        mask = _unpack_mask(words.cpu().numpy(), epoch.num_files)
-    return _rank_and_page(epoch, mask, positive, thr, order_by, limit, offset)
+            # memoized unshardable verdict: a persistently unshardable
+            # (epoch, mesh) pair must not re-attempt sharding and re-warn on
+            # every query of a hot serving path. Keyed by epoch identity (weak)
+            # holding the mesh ids ruled out for it; a recycled mesh id can at
+            # worst serve single-device, never mis-answer.
+            ruled_out = _UNSHARDABLE_VERDICTS.setdefault(epoch, set())
+            if id(mesh) not in ruled_out:
+                try:
+                    words = sharded_mask_words(epoch, mesh, query, expr, thr)
+                    with span("query.fetch"):
+                        mask = _unpack_mask(words, epoch.num_files)
+                except ValueError as exc:
+                    # e.g. a data axis that cannot divide the padded file rows:
+                    # serve the query on the epoch's device rather than failing
+                    logger.warning(
+                        "mesh cannot shard this epoch (%s); single-device "
+                        "(verdict cached for this epoch+mesh)", exc,
+                    )
+                    ruled_out.add(id(mesh))
+        if mask is None:
+            if tables is None:
+                with span("query.plan"):
+                    tables = _slot_tables_np(epoch, expr, thr)
+            # mask evaluation on the device, then ONE copy of the packed words
+            with span("query.mask"):
+                words = _mask_words(epoch, tables)
+            with span("query.fetch"):
+                mask = _unpack_mask(words.cpu().numpy(), epoch.num_files)
+        with span("query.rank"):
+            return _rank_and_page(epoch, mask, positive, thr, order_by, limit, offset)
 
 
 def _rank_and_page(
@@ -1095,27 +1097,31 @@ def search_epoch_batch(
     """
     if order_by not in _ORDERINGS:
         raise ValueError(f"order_by must be one of {_ORDERINGS}")
-    thr = normalize_thresholds(thresholds or {})
+    with span("query.batch"):
+        thr = normalize_thresholds(thresholds or {})
+        positives: list[list[str]] = []
+        pending: list[torch.Tensor] = []
+        for query in queries:
+            with span("query.plan"):
+                tables = _slot_tables_np(epoch, parse_query(query), thr)
+                positives.append(
+                    extract_positive_tag_terms(query) if order_by == "relevance" else []
+                )
+            with span("query.mask"):
+                pending.append(_mask_words(epoch, tables))
+        if not pending:
+            return []
 
-    positives: list[list[str]] = []
-    pending: list[torch.Tensor] = []
-    for query in queries:
-        expr = parse_query(query)
-        pending.append(_mask_words(epoch, _slot_tables_np(epoch, expr, thr)))
-        positives.append(
-            extract_positive_tag_terms(query) if order_by == "relevance" else []
-        )
-    if not pending:
-        return []
-
-    # ONE sync for every query's packed mask words
-    fetched = torch.stack(pending).cpu().numpy()
-    return [
-        _rank_and_page(
-            epoch, _unpack_mask(words, epoch.num_files), positive, thr, order_by, limit, offset
-        )
-        for words, positive in zip(fetched, positives)
-    ]
+        # ONE sync for every query's packed mask words
+        with span("query.fetch"):
+            fetched = torch.stack(pending).cpu().numpy()
+        pages = []
+        for words, positive in zip(fetched, positives):
+            with span("query.fetch"):
+                mask = _unpack_mask(words, epoch.num_files)
+            with span("query.rank"):
+                pages.append(_rank_and_page(epoch, mask, positive, thr, order_by, limit, offset))
+        return pages
 
 
 # ---------------------------------------------------------------------------

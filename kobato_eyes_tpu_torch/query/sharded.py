@@ -39,6 +39,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from kobato_eyes_tpu_torch.utils.tracing import span
+
 # epoch -> {mesh: _ShardedArrays}; weak keys so superseded epochs free their
 # sharded device copies as soon as they go
 _SHARDED_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -134,6 +136,10 @@ def sharded_mask_words(epoch, mesh, query: str, expr, thr: Mapping[int, float]) 
     from kobato_eyes_tpu_torch.query.engine import _mask_words
 
     sharded = _shard_epoch(epoch, mesh)
-    words = [_mask_words(shard, tables) for shard, tables in zip(sharded.shards, _sharded_tables(sharded, epoch, expr, thr))]
+    with span("query.plan"):
+        shard_tables = _sharded_tables(sharded, epoch, expr, thr)
+    with span("query.mask"):
+        words = [_mask_words(shard, tables) for shard, tables in zip(sharded.shards, shard_tables)]
     # gather the shards' words in shard order: one copy each
-    return torch.cat([w.cpu() for w in words]).numpy()
+    with span("query.fetch"):
+        return torch.cat([w.cpu() for w in words]).numpy()
