@@ -74,6 +74,11 @@ batch 32, random seeded weights):
 * the sigmoid: the XLA-rounded pass of ``probs_from_logits`` against its
   plain version on every f32 input (2^32), at the tagger's (32, 8192)
   logits and at (1024, 8192), timed in turns with ``torch.sigmoid``;
+* the tagger's captured dispatch: ViT-B/448 and SwinV2-B/448 through the
+  dispatch / complete pair at depth 3, B = 32 and 5, host and device
+  inputs, thresholds overridden partway, bit-equal to the eager device
+  work, each shape eager once, captured once, then replayed, with the
+  launch counters and a profiled window's kernels inside the replays;
 * the measuring entry points, as a user runs them: ``python -m
   kobato_eyes_tpu_torch.bench`` (the dup headline at 70 000 hashes) in its
   own process, then ``tools/``'s ``bench_tagger`` (ViT-B/448, the fast
@@ -4563,6 +4568,110 @@ def bench_phase(work: Path) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The tagger's captured dispatch: one CUDA graph replay a batch, completed on
+# the batch's own event
+# ---------------------------------------------------------------------------
+
+KERNEL1_NAME = r"attn_wgmma_kernel<\d+, ?(true|false), ?false>|attn_fma_kernel"
+KERNEL3_NAME = r"win_attn_(mma|rows)_kernel"
+
+
+def tagger_graph_phase() -> dict:
+    """The ViT-B/448 and SwinV2-B/448 taggers (the benchmark's knobs: bf16,
+    kernel 1 or 3, the erf GELU, ``ln_impl="xla"``) through
+    ``dispatch_batch_prepared`` / ``complete_batch_prepared`` at depth 3:
+    B = 32 and then B = 5, uint8 batches from the host and from the device,
+    the thresholds overridden partway. Every batch's scores, indices and hit
+    counts equal, bit for bit, the same batch's eager device work with the
+    same thresholds; each shape runs eager once, captures once, then
+    replays; the launch counters count every replayed launch; a profiled
+    window of replays holds each forward's kernels (12 kernel-1 launches a
+    ViT batch, 24 window launches a SwinV2 batch) under ``tagger.replay``.
+    Returns the host milliseconds a pipelined batch took, by arch."""
+    import dataclasses
+    import re
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kobato_eyes_tpu_torch.models.labels import synthetic_labels
+    from kobato_eyes_tpu_torch.models.swin import swin_config
+    from kobato_eyes_tpu_torch.models.tagger import WD14Tagger, fetch
+    from kobato_eyes_tpu_torch.models.vit import vit_config
+    from kobato_eyes_tpu_torch.ops import attention, gelu, window_attention, xla_math
+
+    labels = synthetic_labels(N_LABELS)
+    rng = np.random.default_rng(20)
+    pixels = {b: [rng.integers(0, 256, size=(b, 448, 448, 3), dtype=np.uint8) for _ in range(3)] for b in (BATCH, 5)}
+    override = {0: 0.6, 4: 0.5}
+    cycle_ms = {}
+    for arch in ("vit", "swinv2"):
+        make = vit_config if arch == "vit" else swin_config
+        cfg = dataclasses.replace(make("base", image_size=448, num_classes=N_LABELS), attn_impl="pallas", act="gelu")
+        tagger = WD14Tagger(**{"vit" if arch == "vit" else "swin": cfg}, labels=labels, fast_math=False,
+                            device="cuda", seed=31)
+        limits = dict(tagger.max_tags)
+        # (batch size, which of its three batches, thresholds, from the device?)
+        plan = [(b, i % 3, override if i in (3, 4) else None, i == 2) for b in (BATCH, 5) for i in range(7)]
+
+        def eager(b, i, thresholds):
+            thr = tagger._thr_dev(tagger._thr_vec(thresholds))
+            out = fetch(tagger._select_device(tagger.forward_probs(pixels[b][i]), thr, limits))
+            torch.cuda.synchronize()
+            return out
+
+        want = {(b, i, t is None): eager(b, i, t) for b, i, t, _ in plan}
+        counters = (attention.launches, window_attention.launches, gelu.launches, xla_math.launches)
+        handles, got = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b, i, t, on_device in plan:
+            batch = torch.from_numpy(pixels[b][i]).cuda() if on_device else pixels[b][i]
+            handles.append(((b, i, t is None), tagger.dispatch_batch_prepared(batch, thresholds=t)))
+            if len(handles) == 3:
+                key, handle = handles.pop(0)
+                got.append((key, handle[0].wait()))
+        got += [(key, handle[0].wait()) for key, handle in handles]
+        cycle_ms[arch] = (time.perf_counter() - t0) * 1e3 / len(plan)
+        moved = [now - before for now, before in zip(
+            (attention.launches, window_attention.launches, gelu.launches, xla_math.launches), counters)]
+        for n, (key, arrays) in enumerate(got):
+            for name, a, w in zip(("scores", "indices", "hits"), arrays, want[key]):
+                check(a.dtype == w.dtype and np.array_equal(a, w),
+                      f"{arch} dispatch {n} (batch {key}): replayed {name} differ from the eager work's")
+        check(any(np.isfinite(arrays[0]).any() for _, arrays in got), f"{arch}: no batch had a hit")
+        counts = (tagger.eager_dispatches, tagger.graph_captures, tagger.graph_replays)
+        check(counts == (2, 2, len(plan) - 2), f"{arch}: eager / captures / replays {counts}")
+        depth = cfg.depth if arch == "vit" else sum(cfg.depths)
+        expected = [depth * len(plan), 0, depth * len(plan), len(plan)]
+        if arch != "vit":
+            expected[:2] = [0, depth * len(plan)]
+        check(moved == expected, f"{arch}: launches (kernel 1, window, gelu, sigmoid) {moved} != {expected}")
+
+        # a profiled window of replays: the forward's kernels inside each
+        name = KERNEL1_NAME if arch == "vit" else KERNEL3_NAME
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for k in range(4):
+                tagger.complete_batch_prepared(tagger.dispatch_batch_prepared(pixels[BATCH][k % 3]))
+            torch.cuda.synchronize()
+        events = list(prof.profiler.kineto_results.events())
+        kernels = [ev for ev in events if str(ev.device_type()).endswith("CUDA") and re.search(name, ev.name())]
+        replays = [ev for ev in events if ev.name() == "tagger.replay" and not str(ev.device_type()).endswith("CUDA")]
+        device_ops = sum(1 for ev in events if str(ev.device_type()).endswith("CUDA") and not ev.is_user_annotation())
+        print(f"tagger graph {arch}-b448: {len(plan)} dispatches at depth 3 (B = {BATCH} then 5, 2 with "
+              f"thresholds overridden, 2 from device tensors) bit-equal to the eager work; eager / captures / "
+              f"replays {counts}; launches (kernel 1, window, gelu, sigmoid) {moved}; {cycle_ms[arch]:.2f} ms "
+              f"a batch (host, captures included); profiled: {len(replays)} replay spans, {len(kernels)} "
+              f"{'kernel-1' if arch == 'vit' else 'window'} launches, {device_ops} device operations")
+        check(len(replays) == 4 and len(kernels) == 4 * depth,
+              f"{arch}: profiled {len(replays)} replays and {len(kernels)} of {name}, not 4 and {4 * depth}")
+        del tagger
+        torch.cuda.empty_cache()
+    return cycle_ms
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -4600,6 +4709,7 @@ def main() -> int:
     flash_fwd, flash_dkv, flash_dq = flash_attention_phase()
     sigmoid = sigmoid_phase()
     hamming = pairwise_hamming_phase()
+    tagger_graph_phase()
     kernels = [attn, attn_separate, window, ln, hamming, act, act_backward, sigmoid, flash_fwd, flash_dkv, flash_dq]
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)

@@ -104,16 +104,28 @@ def prepare_batch(images: list[np.ndarray], spec: PreprocessSpec) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def normalize_on_device(batch: torch.Tensor, spec: PreprocessSpec) -> torch.Tensor:
+def mean_std_on_device(spec: PreprocessSpec, device: torch.device | str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``spec``'s mean and std as float32 tensors on ``device``."""
+    return (torch.tensor(spec.mean, dtype=torch.float32, device=device),
+            torch.tensor(spec.std, dtype=torch.float32, device=device))
+
+
+def normalize_on_device(
+    batch: torch.Tensor,
+    spec: PreprocessSpec,
+    mean_std: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
     """(B, H, W, 3) uint8 (or the embedder's mean-pooled float32 0..255)
-    -> float32 NHWC in the model's expected convention."""
+    -> float32 NHWC in the model's expected convention. ``mean_std``: the
+    pixai mode's :func:`mean_std_on_device` on the batch's device, made once
+    by the caller (a CUDA graph capture copies nothing from the host); made
+    here when None."""
     x = batch.to(torch.float32)
     if spec.mode == "wd14":
         return x.flip(-1)  # RGB -> BGR, keep 0..255 un-normalized
     if spec.mode == "pixai":
         x = x / 255.0
-        mean = torch.tensor(spec.mean, dtype=torch.float32, device=x.device)
-        std = torch.tensor(spec.std, dtype=torch.float32, device=x.device)
+        mean, std = mean_std if mean_std is not None else mean_std_on_device(spec, x.device)
         return (x - mean) / std
     if spec.mode == "unit":
         return x / 255.0

@@ -17,6 +17,12 @@ keeps its checkpoints with orbax, which imports JAX; the port's format is a
 directory of ``model.safetensors`` (the state dict) beside
 ``manifest.json`` (what the weights are for and where they came from).
 
+On one CUDA device a batch's whole device work (normalisation, forward,
+probabilities, device selection) replays from a captured CUDA graph from its
+shape's second dispatch on a thread, and every dispatch on a CUDA device completes on an
+event of its own behind its result's copy to pinned host memory
+(``models/graph_dispatch.py``).
+
 With ``mesh`` (``parallel/mesh.py``) the forward runs over its entries:
 the batch padded to a multiple of the data axis and split over the data
 rows, a ViT's heads, MLP width and classes split over the model axis
@@ -31,6 +37,7 @@ import dataclasses
 import hashlib
 import json
 import logging
+import threading
 from pathlib import Path
 from typing import Any, Callable, Mapping, Sequence
 
@@ -48,6 +55,7 @@ from kobato_eyes_tpu_torch.models.base import (
     ThresholdMap,
     WD14_DEFAULT_THRESHOLDS,
 )
+from kobato_eyes_tpu_torch.models.graph_dispatch import BatchGraphs, pack, unpack
 from kobato_eyes_tpu_torch.models.labels import TagMeta, load_labels, synthetic_labels
 from kobato_eyes_tpu_torch.models.postprocess import (
     build_threshold_vector,
@@ -58,7 +66,12 @@ from kobato_eyes_tpu_torch.models.postprocess import (
     topk_hits,
     topk_hits_by_category,
 )
-from kobato_eyes_tpu_torch.models.preprocess import PreprocessSpec, normalize_on_device, prepare_batch
+from kobato_eyes_tpu_torch.models.preprocess import (
+    PreprocessSpec,
+    mean_std_on_device,
+    normalize_on_device,
+    prepare_batch,
+)
 from kobato_eyes_tpu_torch.models.swin import SwinConfig, SwinV2, init_swin_, swin_config
 from kobato_eyes_tpu_torch.models.vit import ViT, ViTConfig, init_vit_, vit_config
 from kobato_eyes_tpu_torch.utils.tracing import span
@@ -69,20 +82,13 @@ logger = logging.getLogger(__name__)
 def fetch(tensors: Sequence[torch.Tensor]) -> list[np.ndarray]:
     """Copy small result tensors to the host in one transfer (one sync).
 
-    Everything travels as float64, which holds every f32 score and every
-    index exactly, and comes back in its own dtype.
+    Everything travels as float64 (``graph_dispatch.pack``), which holds
+    every f32 score and every index exactly, and comes back in its own dtype.
     """
     if not tensors:
         return []
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
-    out: list[np.ndarray] = []
-    offset = 0
-    for t in tensors:
-        n = t.numel()
-        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
-        out.append(flat[offset : offset + n].reshape(tuple(t.shape)).astype(dtype))
-        offset += n
-    return out
+    flat, layout = pack(tensors)
+    return unpack(flat.cpu().numpy(), layout)
 
 
 class TorchTagger:
@@ -224,7 +230,11 @@ class TorchTagger:
             self.cats, self.thresholds, score_floor=self.score_floor
         )
         self._cat_vec_dev = torch.from_numpy(self.cats).to(self.device)
-        self._thr_dev_cache: tuple[np.ndarray, torch.Tensor] | None = None
+        # the thresholds the device selection reads, refreshed in place when a
+        # call asks for others: a captured dispatch reads this buffer
+        self._thr_static = torch.empty(len(self.labels), dtype=torch.float32, device=self.device)
+        self._thr_copied: np.ndarray | None = None
+        self._mean_std = mean_std_on_device(self.spec, self.device) if self.spec.mode == "pixai" else None
 
         model, init = (SwinV2(self.cfg), init_swin_) if arch == "swinv2" else (ViT(self.cfg), init_vit_)
         self._checkpoint_path = Path(checkpoint_path) if checkpoint_path else None
@@ -259,6 +269,8 @@ class TorchTagger:
             self._model = None
         else:
             self._model = model.to(self.device).eval().requires_grad_(False)
+        self._graphs = BatchGraphs(self.device, on_mesh=mesh is not None)
+        self._dispatch_lock = threading.Lock()  # a dispatch owns the static buffers until its copy is queued
 
     # -- identity ---------------------------------------------------------
 
@@ -293,6 +305,21 @@ class TorchTagger:
                     f"{self.spec.mean}:{self.spec.std}",
         }
 
+    @property
+    def graph_captures(self) -> int:
+        """Dispatches that captured their key's CUDA graph (then replayed it)."""
+        return self._graphs.graph_captures
+
+    @property
+    def graph_replays(self) -> int:
+        """Dispatches that replayed a captured graph, the capturing ones included."""
+        return self._graphs.graph_replays
+
+    @property
+    def eager_dispatches(self) -> int:
+        """Dispatches that ran op by op: on the CPU, on a mesh, a key's first."""
+        return self._graphs.eager_dispatches
+
     # -- host prepare -----------------------------------------------------
 
     def prepare_batch_from_rgb(self, images: Sequence[np.ndarray]) -> np.ndarray:
@@ -311,9 +338,12 @@ class TorchTagger:
                 batch = batch_u8.to(self.device)
             else:
                 batch = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
+        return self._probs(batch)
+
+    def _probs(self, batch: torch.Tensor) -> torch.Tensor:
+        """Normalisation, forward and probabilities of a batch on the device."""
         with torch.inference_mode():
-            x = normalize_on_device(batch, self.spec)
-            return probs_from_logits(self._model(x))
+            return probs_from_logits(self._model(normalize_on_device(batch, self.spec, self._mean_std)))
 
     def _forward_probs_mesh(self, batch_u8: np.ndarray | torch.Tensor) -> torch.Tensor:
         from kobato_eyes_tpu_torch.parallel.mesh import shard_batch
@@ -352,16 +382,23 @@ class TorchTagger:
         return self.complete_batch_prepared(handle)
 
     def _thr_dev(self, thr_vec: np.ndarray) -> torch.Tensor:
-        """Device copy of the threshold vector, cached by object identity.
-        The cache holds a STRONG reference to the keyed array, so a freed
-        and reused address never serves a previous call's thresholds."""
-        if self._thr_dev_cache is None or self._thr_dev_cache[0] is not thr_vec:
-            self._thr_dev_cache = (thr_vec, torch.from_numpy(thr_vec).to(self.device))
-        return self._thr_dev_cache[1]
+        """The device's threshold buffer holding ``thr_vec``: copied in
+        only when its values differ from the last copied, on the stream
+        behind the batches already queued, which keep the thresholds they
+        were dispatched with."""
+        if self._thr_copied is None or not np.array_equal(self._thr_copied, thr_vec):
+            self._thr_static.copy_(torch.from_numpy(thr_vec))
+            self._thr_copied = thr_vec.copy()
+        return self._thr_static
 
-    def _select_device(self, probs: torch.Tensor, thr_vec: np.ndarray, limits) -> tuple:
+    def _select_key(self, limits) -> tuple:
+        """The device selection's static arguments (part of a graph's key)."""
+        return (min(self.topk_cap, len(self.labels)),)
+
+    def _select_device(self, probs: torch.Tensor, thr: torch.Tensor, limits) -> tuple:
+        """The device selection's result tensors; ``thr`` is :meth:`_thr_dev`'s."""
         with torch.inference_mode():
-            return topk_hits(probs, self._thr_dev(thr_vec), k=min(self.topk_cap, probs.shape[1]))
+            return topk_hits(probs, thr, k=self._select_key(limits)[0])
 
     def _select_host(self, fetched: Sequence[np.ndarray], limits, thresholds: ThresholdMap | None) -> list[TagResult]:
         scores, idx, hits = fetched
@@ -371,10 +408,11 @@ class TorchTagger:
         )
 
     # -- pipelined inference (dispatch/complete split) ---------------------
-    # dispatch queues the forward and the device top-k on the stream and
-    # returns; complete fetches the small result tensors in one transfer.
-    # The tag stage keeps a bounded window of batches in flight between the
-    # two, so host decode of the next batches overlaps device compute.
+    # dispatch queues the forward, the device top-k and the copy of its
+    # packed result to a pinned host slot on the stream, then records an
+    # event, and returns; complete waits on that batch's event alone. The
+    # tag stage keeps a bounded window of batches in flight between the two,
+    # so host decode of the next batches overlaps device compute.
 
     def dispatch_batch_prepared(
         self,
@@ -383,22 +421,29 @@ class TorchTagger:
         thresholds: ThresholdMap | None = None,
         max_tags: MaxTagsMap | None = None,
     ) -> tuple:
-        """Queue forward + device-side top-k for one batch WITHOUT syncing.
+        """Queue forward + device-side top-k for one batch WITHOUT waiting
+        for it (a batch in pageable host memory is copied by a blocking copy,
+        which waits for the stream's earlier work first).
 
         Returns an opaque handle for :meth:`complete_batch_prepared`. Device
         errors surface at completion time (the stream runs asynchronously)."""
-        with span("tagger.dispatch"):
-            thr_vec = self._thr_vec(thresholds)
+        with span("tagger.dispatch"), self._dispatch_lock:
+            thr = self._thr_dev(self._thr_vec(thresholds))
             limits = resolve_limits(self.max_tags, max_tags)
-            pending = self._select_device(self.forward_probs(batch), thr_vec, limits)
+            dtype = batch.dtype if isinstance(batch, torch.Tensor) else torch.from_numpy(batch[:0]).dtype
+            pending = self._graphs.dispatch(
+                (tuple(batch.shape), dtype, self._select_key(limits)), batch,
+                eager=lambda: self._select_device(self.forward_probs(batch), thr, limits),
+                work=lambda x: self._select_device(self._probs(x), thr, limits),
+            )
             return (pending, limits, thresholds)
 
     def complete_batch_prepared(self, handle: tuple) -> list[TagResult]:
-        """Fetch + host-side selection for a dispatched batch (one sync)."""
+        """Wait for the dispatched batch alone, then host-side selection."""
         pending, limits, thresholds = handle
         with span("tagger.complete"):
             with span("tagger.fetch"):
-                fetched = fetch(pending)
+                fetched = pending.wait()
             with span("tagger.select"):
                 return self._select_host(fetched, limits, thresholds)
 
@@ -410,10 +455,10 @@ class TorchTagger:
         max_tags: MaxTagsMap | None = None,
     ) -> list[list[TagResult]]:
         """Drain-style inference: dispatch every batch, fetch once."""
-        thr_vec = self._thr_vec(thresholds)
+        thr = self._thr_dev(self._thr_vec(thresholds))
         limits = resolve_limits(self.max_tags, max_tags)
         pending = [
-            self._select_device(self.forward_probs(b), thr_vec, limits) for b in batches
+            self._select_device(self.forward_probs(b), thr, limits) for b in batches
         ]
         flat = fetch([t for p in pending for t in p])
         fetched = []
@@ -449,7 +494,7 @@ class PixaiTagger(TorchTagger):
     default_thresholds = PIXAI_DEFAULT_THRESHOLDS
     default_max_tags = dict(PIXAI_DEFAULT_MAX_TAGS)
 
-    def _select_device(self, probs: torch.Tensor, thr_vec: np.ndarray, limits) -> tuple:
+    def _select_key(self, limits) -> tuple:
         present = sorted(set(int(c) for c in np.unique(self.cats)))
         caps = []
         for cat in present:
@@ -457,9 +502,12 @@ class PixaiTagger(TorchTagger):
             cap = self.topk_cap if limit is None else min(max(0, int(limit)), self.topk_cap)
             if cap > 0:
                 caps.append((cat, cap))
+        return tuple(caps)
+
+    def _select_device(self, probs: torch.Tensor, thr: torch.Tensor, limits) -> tuple:
         with torch.inference_mode():
             scores_d, idx_d = topk_hits_by_category(
-                probs, self._thr_dev(thr_vec), self._cat_vec_dev, caps=tuple(caps)
+                probs, thr, self._cat_vec_dev, caps=self._select_key(limits)
             )
         # Full prob rows only needed when some candidate has ips links.
         if any(m.ips for m in self.labels):

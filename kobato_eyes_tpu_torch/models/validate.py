@@ -232,7 +232,7 @@ def _probe_ips_propagation(tagger) -> bool:
     probs[0, tagger._name_to_idx[char.name]] = 0.95
     limits = resolve_limits(tagger.max_tags, None)
     pending = tagger._select_device(
-        torch.from_numpy(probs).to(tagger.device), tagger._thr_vec_np, limits
+        torch.from_numpy(probs).to(tagger.device), tagger._thr_dev(tagger._thr_vec_np), limits
     )
     results = tagger._select_host(fetch(pending), limits, None)
     got = {t.name: t.score for t in results[0].tags}

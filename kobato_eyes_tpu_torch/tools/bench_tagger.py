@@ -113,7 +113,7 @@ def main(argv: list[str] | None = None) -> int:
     # -- per-batch latency (blocking) on a few batches ----------------------
     infer_times: list[float] = []
     post_times: list[float] = []
-    thr = tagger._thr_vec_np
+    thr = tagger._thr_dev(tagger._thr_vec_np)
     limits = dict(tagger.max_tags)
     for i, batch in enumerate(batches[: args.warmup_batches + 3]):
         t0 = time.perf_counter()
