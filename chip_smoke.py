@@ -4672,6 +4672,207 @@ def tagger_graph_phase() -> dict:
     return cycle_ms
 
 
+EVA02_L448 = dict(batch=32, tokens=1025, heads=16, head_dim=64)
+ROPE_NAME = r"rope2d_packed_kernel"
+
+
+def pixai_labels(general: int = 9461, characters: int = 4000, series: int = 1000) -> list:
+    """PixAI v0.9's 13 461 labels (the split assumed): general tags, then
+    characters, character i linked by ``ips`` to ``series_{i mod series}``,
+    a copyright name that is not a label."""
+    from kobato_eyes_tpu_torch.models.base import TagCategory
+    from kobato_eyes_tpu_torch.models.labels import TagMeta
+
+    labels = [TagMeta(name=f"tag_{i:04d}", category=TagCategory.GENERAL) for i in range(general)]
+    labels += [TagMeta(name=f"chara_{i:04d}", category=TagCategory.CHARACTER, ips=(f"series_{i % series:04d}",))
+               for i in range(characters)]
+    return labels
+
+
+def eva02_phase() -> dict:
+    """The PixAI tagger's EVA02-L/448 backbone on the card. The RoPE kernel
+    (``ops/rope.py``) bit-equal to its plain version on the packed (32, 1025,
+    3, 16, 64) projection in bf16 and f32 and on a strided slice, v and the
+    class token untouched, timed through a CUDA graph beside its bound and
+    its plain version; kernel 1 at T = 1025, H = 16, D = 64 (a ragged 17th
+    key tile, a ninth q tile of one row) against its plain version, timed;
+    the port's EVA02 forward through the kernels beside its einsum forward on
+    the same weights; a ``PixaiTagger`` over EVA02-L/448 (13 461 labels with
+    ``ips`` links, bf16, ``attn_impl="pallas"``) through
+    ``dispatch_batch_prepared`` / ``complete_batch_prepared`` at depth 3:
+    every replayed batch's scores, indices and probability rows bit-equal to
+    the same batch's eager work, one eager dispatch, one capture, 24 RoPE and
+    24 kernel-1 launches a forward, and a profiled window of replays holding
+    them. Returns the RoPE kernel's entry of the kernels line."""
+    import dataclasses
+    import re
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from kobato_eyes_tpu_torch.models.eva02 import EVA02, eva02_config, rope_table
+    from kobato_eyes_tpu_torch.models.tagger import PixaiTagger, fetch
+    from kobato_eyes_tpu_torch.ops import attention, rope
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = eva02_config("large", image_size=448, num_classes=13461, attn_impl="pallas")
+    b, t, h, d = (EVA02_L448[k] for k in ("batch", "tokens", "heads", "head_dim"))
+    sin, cos = rope_table(cfg, device=dev)
+
+    def packed(dtype, seed, shape=(b, t, 3, h, d)):
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+
+    def bits(x):
+        return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+    rope_errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = packed(dtype, 40)
+        got = rope.rope_packed(x.clone(), sin, cos)
+        want = rope.rope_packed_plain(x.clone(), sin, cos)
+        torch.cuda.synchronize()
+        rope_errs.append(float((got.float() - want.float()).abs().max()))
+        check(bool(torch.equal(bits(got), bits(want))), f"rope {dtype}: kernel differs from its plain version")
+        check(bool(torch.equal(bits(got[:, :, 2]), bits(x[:, :, 2]))) and bool(torch.equal(bits(got[:, 0]), bits(x[:, 0]))),
+              f"rope {dtype}: v or the class token changed")
+        check(not torch.equal(bits(got[:, 1:, :2]), bits(x[:, 1:, :2])), f"rope {dtype}: nothing rotated")
+    big = packed(torch.bfloat16, 41, (3, t + 8, 3, h, d))
+    view = big[1:, 3 : 3 + t]  # batch stride != T * 3 * H * D, 16-byte aligned
+    want = rope.rope_packed_plain(view.clone(), sin, cos)
+    rope.rope_packed(view, sin, cos)
+    torch.cuda.synchronize()
+    rope_errs.append(float((view.float() - want.float()).abs().max()))
+    check(bool(torch.equal(bits(view), bits(want))), "rope: strided slice differs from its plain version")
+    print(f"rope eva02-l448 B=32 bf16 and f32, a strided bf16 slice: bit-equal to the plain version "
+          f"(max_abs_err={max(rope_errs):.3e}); v and cls untouched")
+
+    x = packed(torch.bfloat16, 42)
+    rope_ms = cuda_graph_ms([lambda: rope.rope_packed(x, sin, cos)], replays=20)
+    rope_plain_ms = cuda_ms(lambda: rope.rope_packed_plain(x, sin, cos), iters=5)
+    rope_bytes = 2.0 * b * (t - 1) * 2 * h * d * 2 + 2 * (t - 1) * (d // 2) * 4
+    rope_bound = rope_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"rope eva02-l448 bf16 B=32 (CUDA graph): kernel {rope_ms:.4f} ms, plain {rope_plain_ms:.4f} ms, "
+          f"bound {rope_bound:.4f} ms (bytes: {rope_bytes / 1e6:.1f} MB), {rope_bytes / rope_ms / 1e6:.0f} GB/s")
+
+    # kernel 1 at EVA02-L/448's shape
+    scale = d**-0.5
+    qkv = packed(torch.bfloat16, 43)
+    got = attention.head_resident_attention_packed(qkv, scale=scale)
+    want = attention.head_resident_attention_packed_plain(qkv, scale=scale)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    print(f"attention eva02-l448 bf16 B=32 T={t} H={h}: max_abs_err={err:.3e} (tol 3e-2)")
+    check(err <= 3e-2, f"attention eva02-l448: max_abs_err {err} > 3e-2")
+    q32 = packed(torch.float32, 44, (2, t, 3, h, d))
+    err32 = float((attention.head_resident_attention_packed(q32, scale=scale)
+                   - attention.head_resident_attention_packed_plain(q32, scale=scale)).abs().max())
+    print(f"attention eva02-l448 f32 B=2: max_abs_err={err32:.3e} (tol 5e-5)")
+    check(err32 <= 5e-5, f"attention eva02-l448 f32: max_abs_err {err32} > 5e-5")
+    attn_ms = cuda_graph_ms([lambda: attention.head_resident_attention_packed(qkv, scale=scale)], replays=10)
+    q, k, v = (y.transpose(1, 2) for y in qkv.unbind(dim=2))
+    sdpa_ms = cuda_graph_ms([lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)], replays=10)
+    attn_ops = 4.0 * b * h * t * t * d
+    print(f"attention eva02-l448 bf16 B=32 (CUDA graph): kernel {attn_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, "
+          f"bound {attn_ops / BF16_FLOPS_PER_S * 1e3:.4f} ms (operations: {attn_ops / 1e9:.1f} GFLOP), "
+          f"{attn_ops / attn_ms / 1e9:.1f} TFLOP/s")
+    del x, qkv, q, k, v, q32, big, view, got, want
+
+    # the forward through the kernels beside the einsum forward, same weights
+    labels = pixai_labels()
+    tagger = PixaiTagger(eva02=cfg, labels=labels, fast_math=False, device="cuda", seed=31)
+    model = tagger._model
+    plain = EVA02(dataclasses.replace(cfg, attn_impl="einsum")).to(dev).eval()
+    plain.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(21)
+    pixels = [rng.integers(0, 256, size=(b, 448, 448, 3), dtype=np.uint8) for _ in range(3)]
+    with torch.inference_mode():
+        xin = torch.randn(4, 448, 448, 3, generator=torch.Generator().manual_seed(3)).to(dev)
+        fast, slow = model(xin), plain(xin)
+    gap = float((fast - slow).abs().max())
+    print(f"eva02-l448 bf16 B=4: max |logit(kernels) - logit(einsum)| {gap:.4f}")
+    check(bool(torch.isfinite(fast).all()) and gap < 0.5, f"eva02 forward through the kernels: gap {gap}")
+    del plain
+
+    limits = dict(tagger.max_tags)
+    override = {0: 0.6, 4: 0.9}
+    plan = [(i % 3, override if i in (3, 4) else None, i == 2) for i in range(7)]
+
+    def eager(i, thresholds):
+        thr = tagger._thr_dev(tagger._thr_vec(thresholds))
+        out = fetch(tagger._select_device(tagger.forward_probs(pixels[i]), thr, limits))
+        torch.cuda.synchronize()
+        return out
+
+    want = {(i, th is None): eager(i, th) for i, th, _ in plan}
+    before = (rope.launches, attention.launches)
+    handles, got = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, th, on_device in plan:
+        batch = torch.from_numpy(pixels[i]).cuda() if on_device else pixels[i]
+        handles.append(((i, th is None), tagger.dispatch_batch_prepared(batch, thresholds=th)))
+        if len(handles) == 3:
+            key, handle = handles.pop(0)
+            got.append((key, handle[0].wait()))
+    got += [(key, handle[0].wait()) for key, handle in handles]
+    cycle_ms = (time.perf_counter() - t0) * 1e3 / len(plan)
+    moved = [rope.launches - before[0], attention.launches - before[1]]
+    for n, (key, arrays) in enumerate(got):
+        for name, a, w in zip(("scores", "indices", "probs"), arrays, want[key]):
+            check(a.dtype == w.dtype and np.array_equal(a, w),
+                  f"eva02 dispatch {n} (batch {key}): replayed {name} differ from the eager work's")
+    counts = (tagger.eager_dispatches, tagger.graph_captures, tagger.graph_replays)
+    check(counts == (1, 1, len(plan) - 1), f"eva02: eager / captures / replays {counts}")
+    check(moved == [cfg.depth * len(plan)] * 2, f"eva02: launches (rope, kernel 1) {moved} != {cfg.depth * len(plan)} each")
+    rows = tagger.complete_batch_prepared(tagger.dispatch_batch_prepared(pixels[0]))
+    copyrights = sum(1 for r in rows for tag in r.tags if int(tag.category) == 3)
+    check(copyrights > 0, "eva02: no copyright reached a row")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(4):
+            tagger.complete_batch_prepared(tagger.dispatch_batch_prepared(pixels[k % 3]))
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [ev for ev in events if str(ev.device_type()).endswith("CUDA") and not ev.is_user_annotation()]
+    ropes = [ev for ev in on_card if re.search(ROPE_NAME, ev.name())]
+    kernel1 = [ev for ev in on_card if re.search(KERNEL1_NAME, ev.name())]
+    replays = [ev for ev in events if ev.name() == "tagger.replay" and not str(ev.device_type()).endswith("CUDA")]
+    busy_ms = sum(ev.duration_ns() for ev in on_card) / 1e6 / 4
+    by_name: dict[str, float] = {}
+    for ev in on_card:
+        by_name[ev.name()] = by_name.get(ev.name(), 0.0) + ev.duration_ns() / 1e6 / 4
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
+    print(f"tagger graph pixai-eva02-l448: {len(plan)} dispatches at depth 3 (B = {b}, 2 with thresholds "
+          f"overridden, 1 from a device tensor) bit-equal to the eager work (scores, indices, probability rows); "
+          f"eager / captures / replays {counts}; launches (rope, kernel 1) {moved}; {cycle_ms:.2f} ms a batch "
+          f"(host, the capture included); {copyrights} copyrights in a batch's rows; profiled: {len(replays)} "
+          f"replay spans, {len(ropes)} rope and {len(kernel1)} kernel-1 launches, {busy_ms:.2f} ms of device "
+          f"operations a batch")
+    for name, ms in top:
+        print(f"  eva02 device ms a batch {ms:8.3f}  {name[:110]}")
+    check(len(replays) == 4 and len(ropes) == 4 * cfg.depth and len(kernel1) == 4 * cfg.depth,
+          f"eva02: profiled {len(replays)} replays, {len(ropes)} rope, {len(kernel1)} kernel-1 launches")
+    del tagger, model
+    torch.cuda.empty_cache()
+    return {
+        "name": "rope2d_packed",
+        "route": "cuda",
+        "source": "kobato_eyes_tpu_torch/csrc/rope_2d.cu",
+        "replaces": None,  # not a TPU kernel: EVA02's rotation, which the JAX package lacks
+        "launches": moved[0],
+        "max_abs_err": max(rope_errs),
+        "ms": rope_ms,
+        "plain_ms": rope_plain_ms,
+        "bound_ms": rope_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -4710,7 +4911,9 @@ def main() -> int:
     sigmoid = sigmoid_phase()
     hamming = pairwise_hamming_phase()
     tagger_graph_phase()
-    kernels = [attn, attn_separate, window, ln, hamming, act, act_backward, sigmoid, flash_fwd, flash_dkv, flash_dq]
+    rope_entry = eva02_phase()
+    kernels = [attn, attn_separate, window, ln, hamming, act, act_backward, sigmoid, flash_fwd, flash_dkv, flash_dq,
+               rope_entry]
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_root))

@@ -528,27 +528,33 @@ def cmd_import_weights(args) -> int:
     from kobato_eyes_tpu_torch.models.tagger import save_checkpoint
     from kobato_eyes_tpu_torch.utils.hashing import compute_sha256
 
-    manifest = {"arch": args.arch, "preset": args.preset, "clip_variant": None}
+    preset = args.preset or ("large" if args.arch == "eva02" else "base")
+    manifest = {"arch": args.arch, "preset": preset, "clip_variant": None}
     if args.arch == "swinv2":
         from kobato_eyes_tpu_torch.models.swin import swin_config
 
-        cfg = swin_config(args.preset, image_size=args.image_size, num_classes=args.classes)
+        cfg = swin_config(preset, image_size=args.image_size, num_classes=args.classes)
+        manifest["num_classes"] = args.classes
+    elif args.arch == "eva02":
+        from kobato_eyes_tpu_torch.models.eva02 import eva02_config
+
+        cfg = eva02_config(preset, image_size=args.image_size, num_classes=args.classes)
         manifest["num_classes"] = args.classes
     elif args.arch == "clip":
         from kobato_eyes_tpu_torch.index.embedder import embedder_config
 
-        cfg = embedder_config(args.preset, args.image_size, 32, args.classes, args.clip_variant)
+        cfg = embedder_config(preset, args.image_size, 32, args.classes, args.clip_variant)
         manifest.update(embed_dim=args.classes, clip_variant=args.clip_variant)
     else:
         from kobato_eyes_tpu_torch.models.vit import vit_config
 
-        cfg = vit_config(args.preset, image_size=args.image_size, num_classes=args.classes)
+        cfg = vit_config(preset, image_size=args.image_size, num_classes=args.classes)
         manifest["num_classes"] = args.classes
     manifest.update(image_size=cfg.image_size, patch_size=cfg.patch_size)
     src = Path(args.state_dict)
     manifest["source"] = {"name": src.name, "sha256": None if src.is_dir() else compute_sha256(src)}
     save_checkpoint(args.out, import_torch_checkpoint(src, cfg), manifest=manifest)
-    print(json.dumps({"arch": args.arch, "preset": args.preset, "out": str(args.out)}))
+    print(json.dumps({"arch": args.arch, "preset": preset, "out": str(args.out)}))
     return 0
 
 
@@ -994,8 +1000,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("state_dict", help=".pth/.pt/.safetensors/.onnx file")
     p.add_argument("out", help="output checkpoint directory")
-    p.add_argument("--arch", choices=["swinv2", "vit", "clip"], default="swinv2")
-    p.add_argument("--preset", default="base")
+    p.add_argument("--arch", choices=["swinv2", "vit", "eva02", "clip"], default="swinv2")
+    p.add_argument("--preset", help="model size (default: large for eva02, else base)")
     p.add_argument("--image-size", type=int, default=448)
     p.add_argument("--classes", type=int, default=8192,
                    help="label count (taggers) or embed dim (clip)")

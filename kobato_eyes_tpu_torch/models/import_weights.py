@@ -1,7 +1,8 @@
-"""Carry ViT, SwinV2 and CLIP weights into the port's models.
+"""Carry ViT, SwinV2, EVA02 and CLIP weights into the port's models.
 
-The port's ``models/vit.ViT`` and ``models/swin.SwinV2`` use timm's parameter
-names, so weights arrive two ways:
+The port's ``models/vit.ViT``, ``models/swin.SwinV2`` and
+``models/eva02.EVA02`` use timm's parameter names, so weights arrive two
+ways (EVA02, which the JAX package lacks, only the second):
 
 * ``vit_state_from_jax_params`` / ``swin_state_from_jax_params`` /
   ``clip_state_from_jax_params`` turn the JAX package's flax tree (as numpy,
@@ -11,6 +12,8 @@ names, so weights arrive two ways:
   weights runs in both.
 * ``vit_params_from_torch_state`` / ``swin_params_from_torch_state`` check a
   timm state dict against the config and return it as the port's state dict;
+  ``eva02_params_from_torch_state`` does the same for timm's ``Eva``
+  (separate q, k, v projections, SwiGLU, ``fc_norm``);
   ``clip_vit_params_from_torch_state`` turns an OpenAI / open_clip visual
   tower into the state dict of ``index/embedder.ClipImageEncoder`` (the
   timm-named ViT under ``vit.`` plus a bias-free ``proj``).
@@ -33,6 +36,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from kobato_eyes_tpu_torch.models.eva02 import EVA02Config
 from kobato_eyes_tpu_torch.models.swin import CPB_HIDDEN, SwinConfig
 from kobato_eyes_tpu_torch.models.vit import ViTConfig
 
@@ -142,6 +146,25 @@ def vit_params_from_torch_state(
             )
         if tuple(arr.shape) != want:
             raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {want}")
+        out[key] = _tensor(arr)
+    return out
+
+
+def eva02_params_from_torch_state(state: Mapping[str, Any], cfg: EVA02Config) -> dict[str, torch.Tensor]:
+    """timm ``Eva`` state dict (``eva02_*`` with ``qkv_fused=False``, the
+    wd-eva02 tagger's) -> the port's state dict (f32 tensors), every key of
+    :func:`eva02_state_manifest` at its shape. A state dict without the head
+    loads with the head left as it was."""
+    has_head = "head.weight" in state
+    if not has_head:
+        logger.warning("state dict has no classifier head; head left random")
+    out: dict[str, torch.Tensor] = {}
+    for key, want in eva02_state_manifest(cfg, head=has_head).items():
+        if key not in state:
+            raise KeyError(f"missing weight {key!r}")
+        arr = _np(state[key])
+        if tuple(arr.shape) != tuple(want):
+            raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {tuple(want)}")
         out[key] = _tensor(arr)
     return out
 
@@ -420,6 +443,46 @@ def vit_state_manifest(cfg: ViTConfig, *, head: bool = True) -> dict[str, tuple[
     return m
 
 
+def eva02_state_manifest(cfg: EVA02Config, *, head: bool = True) -> dict[str, tuple[int, ...]]:
+    """Expected timm ``Eva`` weight keys -> shapes for ``cfg``: q and v
+    projections with a bias, k without, SwiGLU's ``fc1_g`` / ``fc1_x`` /
+    ``norm`` / ``fc2``, the mean pool's ``fc_norm`` and a flat ``head``. The
+    RoPE table is derived (timm keeps it out of the state too)."""
+    d, p, hidden = cfg.hidden_dim, cfg.patch_size, cfg.mlp_hidden
+    m: dict[str, tuple[int, ...]] = {
+        "cls_token": (1, 1, d),
+        "pos_embed": (1, cfg.num_patches + 1, d),
+        "patch_embed.proj.weight": (d, 3, p, p),
+        "patch_embed.proj.bias": (d,),
+    }
+    for i in range(cfg.depth):
+        pre = f"blocks.{i}."
+        m[pre + "norm1.weight"] = (d,)
+        m[pre + "norm1.bias"] = (d,)
+        m[pre + "attn.q_proj.weight"] = (d, d)
+        m[pre + "attn.q_proj.bias"] = (d,)
+        m[pre + "attn.k_proj.weight"] = (d, d)
+        m[pre + "attn.v_proj.weight"] = (d, d)
+        m[pre + "attn.v_proj.bias"] = (d,)
+        m[pre + "attn.proj.weight"] = (d, d)
+        m[pre + "attn.proj.bias"] = (d,)
+        m[pre + "norm2.weight"] = (d,)
+        m[pre + "norm2.bias"] = (d,)
+        for name in ("fc1_g", "fc1_x"):
+            m[pre + f"mlp.{name}.weight"] = (hidden, d)
+            m[pre + f"mlp.{name}.bias"] = (hidden,)
+        m[pre + "mlp.norm.weight"] = (hidden,)
+        m[pre + "mlp.norm.bias"] = (hidden,)
+        m[pre + "mlp.fc2.weight"] = (d, hidden)
+        m[pre + "mlp.fc2.bias"] = (d,)
+    m["fc_norm.weight"] = (d,)
+    m["fc_norm.bias"] = (d,)
+    if head:
+        m["head.weight"] = (cfg.num_classes, d)
+        m["head.bias"] = (cfg.num_classes,)
+    return m
+
+
 def clip_vit_state_manifest(
     cfg: ViTConfig, *, embed_out: int = 512, prefix: str = "visual."
 ) -> dict[str, tuple[int, ...]]:
@@ -525,7 +588,7 @@ def load_state_file(path: str | Path) -> Mapping[str, Any]:
 
 
 def import_torch_checkpoint(
-    path: str | Path, cfg: ViTConfig | SwinConfig, *, strict: bool = True
+    path: str | Path, cfg: ViTConfig | SwinConfig | EVA02Config, *, strict: bool = True
 ) -> dict[str, torch.Tensor]:
     """Load a ``.pt``/``.pth``, ``.safetensors`` or ``.onnx`` state dict and
     convert it to the port's state dict for ``cfg`` (a CLIP visual tower,
@@ -570,6 +633,10 @@ def import_torch_checkpoint(
             style = "fc" if "head.fc.weight" in state or "head.fc.bias" in state else "flat"
             state = check(swin_state_manifest(cfg, head_style=style), state)
         return swin_params_from_torch_state(state, cfg)
+    if isinstance(cfg, EVA02Config):
+        if strict:
+            state = check(eva02_state_manifest(cfg, head="head.weight" in state or "head.bias" in state), state)
+        return eva02_params_from_torch_state(state, cfg)
     # ViT: dispatch on the naming family — CLIP visual tower (conv1 /
     # transformer.resblocks) vs timm VisionTransformer (patch_embed / blocks)
     if any(k.endswith("conv1.weight") or ".resblocks." in k for k in state):
@@ -589,22 +656,24 @@ def import_torch_checkpoint(
     return vit_params_from_torch_state(state, cfg)
 
 
-def _checkpoint_dir_state(path: Path, cfg: ViTConfig | SwinConfig) -> dict[str, torch.Tensor]:
+def _checkpoint_dir_state(path: Path, cfg: ViTConfig | SwinConfig | EVA02Config) -> dict[str, torch.Tensor]:
     """The port's checkpoint directory, held to ``cfg``: its image size, an
     arch that fits the config, and that arch's key/shape manifest (a tagger
     checkpoint's state is already timm-named, a ``clip`` one the embedder's
     own)."""
     from kobato_eyes_tpu_torch.models.tagger import checkpoint_state
 
-    swin = isinstance(cfg, SwinConfig)
+    fits, kind = {SwinConfig: (("swinv2",), "SwinV2"), EVA02Config: (("eva02",), "EVA02")}.get(
+        type(cfg), (("vit", "clip"), "ViT")
+    )
 
     def key_manifest(meta: dict[str, Any]) -> dict[str, tuple[int, ...]]:
         arch = meta.get("arch")
-        if arch not in (("swinv2",) if swin else ("vit", "clip")):
-            raise ValueError(f"{path} holds a {arch!r} checkpoint, not a {'SwinV2' if swin else 'ViT'} one")
+        if arch not in fits:
+            raise ValueError(f"{path} holds a {arch!r} checkpoint, not a {kind} one")
         if arch == "clip":
             return clip_encoder_state_manifest(cfg, int(meta["embed_dim"]))
-        return swin_state_manifest(cfg) if swin else vit_state_manifest(cfg)
+        return {"swinv2": swin_state_manifest, "eva02": eva02_state_manifest}.get(arch, vit_state_manifest)(cfg)
 
     state, _ = checkpoint_state(path, expect={"image_size": cfg.image_size}, key_manifest=key_manifest)
     return {k: v.float() for k, v in state.items()}

@@ -12,7 +12,9 @@ Weights are a state dict (timm names, see ``models/import_weights.py``), a
 checkpoint directory written by :func:`save_checkpoint` (``ket
 import-weights`` writes one) or a random init from a seeded
 ``torch.Generator``. Both archs are ported: ViT (``models/vit.py``) and
-SwinV2 (``models/swin.py``, the WD14 family's real arch). The JAX package
+SwinV2 (``models/swin.py``, the WD14 family's real arch); the port adds
+EVA02 (``models/eva02.py``, the PixAI tagger's published backbone), which
+the JAX package does not have. The JAX package
 keeps its checkpoints with orbax, which imports JAX; the port's format is a
 directory of ``model.safetensors`` (the state dict) beside
 ``manifest.json`` (what the weights are for and where they came from).
@@ -55,6 +57,7 @@ from kobato_eyes_tpu_torch.models.base import (
     ThresholdMap,
     WD14_DEFAULT_THRESHOLDS,
 )
+from kobato_eyes_tpu_torch.models.eva02 import EVA02, EVA02Config, eva02_config, init_eva02_
 from kobato_eyes_tpu_torch.models.graph_dispatch import BatchGraphs, pack, unpack
 from kobato_eyes_tpu_torch.models.labels import TagMeta, load_labels, synthetic_labels
 from kobato_eyes_tpu_torch.models.postprocess import (
@@ -105,11 +108,12 @@ class TorchTagger:
         labels_path: str | Path | None = None,
         vit: ViTConfig | None = None,
         swin: SwinConfig | None = None,  # overrides arch="swinv2"
-        arch: str = "vit",  # "vit" | "swinv2" (the WD14 family's real arch)
-        preset: str = "base",
+        eva02: EVA02Config | None = None,  # overrides arch="eva02"
+        arch: str | None = None,  # "vit" (default) | "swinv2" (the WD14 family's real arch) | "eva02" (PixAI's)
+        preset: str | None = None,  # default: "large" for EVA02, else "base"
         params: Mapping[str, torch.Tensor] | None = None,
         checkpoint_path: str | Path | None = None,
-        image_size: int = 448,
+        image_size: int | None = None,  # default 448
         score_floor: float = DEFAULT_SCORE_FLOOR,
         topk_cap: int = DEFAULT_TOPK_CAP,
         thresholds: ThresholdMap | None = None,
@@ -133,7 +137,10 @@ class TorchTagger:
         ``checkpoint_path``, a directory written by :func:`save_checkpoint`
         whose arch, preset and image size must be this tagger's and whose
         state must match the arch's key/shape manifest; else random weights
-        from ``torch.Generator().manual_seed(seed)``.
+        from ``torch.Generator().manual_seed(seed)``. Without a config,
+        ``arch``, ``preset`` and ``image_size`` left out are the checkpoint
+        manifest's, so ``checkpoint_path`` alone loads any tagger
+        ``ket import-weights`` wrote.
 
         ``bf16_params``: inference-only bf16 weights, as the JAX tagger's
         knob: every f32 parameter is stored in bf16 once and the config's
@@ -142,13 +149,26 @@ class TorchTagger:
         logit scale and the CPB MLP's weights are rounded too, as the JAX
         tagger rounds its whole parameter tree).
         """
-        explicit_cfg = swin is not None or vit is not None
-        if swin is not None:
+        explicit_cfg = swin is not None or vit is not None or eva02 is not None
+        if not explicit_cfg and params is None and checkpoint_path is not None:
+            meta = read_manifest(checkpoint_path)
+            arch = arch or meta.get("arch")
+            preset = preset or meta.get("preset")
+            image_size = image_size or meta.get("image_size")
+        arch = arch or "vit"
+        image_size = image_size or 448
+        if eva02 is not None:
+            arch = "eva02"
+        elif swin is not None:
             arch = "swinv2"
         elif vit is not None:
             arch = "vit"
-        if arch not in ("vit", "swinv2"):
-            raise ValueError(f"unknown arch {arch!r} (vit | swinv2)")
+        if arch not in ("vit", "swinv2", "eva02"):
+            raise ValueError(f"unknown arch {arch!r} (vit | swinv2 | eva02)")
+        if arch == "eva02" and mesh is not None:
+            raise ValueError("an EVA02 tagger runs on one device: the mesh forward splits a ViT or replicates a SwinV2")
+        if preset is None:
+            preset = "large" if arch == "eva02" else "base"
         # with a mesh, results gather on its first entry
         self.device = mesh.local_devices[0, 0] if mesh is not None else resolve_device(device)
 
@@ -191,10 +211,15 @@ class TorchTagger:
                 )
         if arch == "swinv2":
             self.cfg = swin or swin_config(preset, image_size=image_size, num_classes=len(self.labels))
+        elif arch == "eva02":
+            self.cfg = eva02 or eva02_config(preset, image_size=image_size, num_classes=len(self.labels))
         else:
             self.cfg = vit or vit_config(preset, image_size=image_size, num_classes=len(self.labels))
-        if fast_math and self.cfg.attn_impl == "einsum" and self.cfg.act == "gelu":
-            self.cfg = dataclasses.replace(self.cfg, attn_impl="pallas", act="gelu_tanh")
+        if fast_math and self.cfg.attn_impl == "einsum":
+            if arch == "eva02":  # SwiGLU: no GELU to swap
+                self.cfg = dataclasses.replace(self.cfg, attn_impl="pallas")
+            elif self.cfg.act == "gelu":
+                self.cfg = dataclasses.replace(self.cfg, attn_impl="pallas", act="gelu_tanh")
         if self.cfg.num_classes != len(self.labels):
             raise ValueError(
                 f"model head ({self.cfg.num_classes}) != label count ({len(self.labels)})"
@@ -236,16 +261,21 @@ class TorchTagger:
         self._thr_copied: np.ndarray | None = None
         self._mean_std = mean_std_on_device(self.spec, self.device) if self.spec.mode == "pixai" else None
 
-        model, init = (SwinV2(self.cfg), init_swin_) if arch == "swinv2" else (ViT(self.cfg), init_vit_)
+        module, init = {"swinv2": (SwinV2, init_swin_), "eva02": (EVA02, init_eva02_), "vit": (ViT, init_vit_)}[arch]
+        model = module(self.cfg)
         self._checkpoint_path = Path(checkpoint_path) if checkpoint_path else None
         if params is not None:
             model.load_state_dict(params, strict=True)
         elif self._checkpoint_path is not None:
-            from kobato_eyes_tpu_torch.models.import_weights import swin_state_manifest, vit_state_manifest
+            from kobato_eyes_tpu_torch.models.import_weights import (
+                eva02_state_manifest,
+                swin_state_manifest,
+                vit_state_manifest,
+            )
 
             # a config passed in names no preset; one built from the preset does
             expect = {"arch": arch, "image_size": self.cfg.image_size, **({} if explicit_cfg else {"preset": preset})}
-            keys = swin_state_manifest if arch == "swinv2" else vit_state_manifest
+            keys = {"swinv2": swin_state_manifest, "eva02": eva02_state_manifest}.get(arch, vit_state_manifest)
             state, _ = checkpoint_state(self._checkpoint_path, expect=expect, key_manifest=lambda _: keys(self.cfg))
             model.load_state_dict(state, strict=True)
         else:
@@ -287,6 +317,11 @@ class TorchTagger:
             arch = (
                 f"swinv2-e{self.cfg.embed_dim}-d{'.'.join(map(str, self.cfg.depths))}"
                 f"-w{self.cfg.window_size}-{self.cfg.image_size}"
+            )
+        elif self.arch == "eva02":
+            arch = (
+                f"eva02-d{self.cfg.depth}-h{self.cfg.hidden_dim}-p{self.cfg.patch_size}"
+                f"-m{self.cfg.mlp_hidden}-{self.cfg.image_size}"
             )
         else:
             arch = f"vit-d{self.cfg.depth}-h{self.cfg.hidden_dim}-p{self.cfg.patch_size}-{self.cfg.image_size}"
@@ -584,8 +619,8 @@ def save_checkpoint(path: str | Path, state: Mapping[str, torch.Tensor], *, mani
     return path
 
 
-def load_checkpoint(path: str | Path) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
-    """``(state, manifest)`` of a directory written by :func:`save_checkpoint`.
+def read_manifest(path: str | Path) -> dict[str, Any]:
+    """The manifest of a directory written by :func:`save_checkpoint`.
     Anything else raises ``ValueError``: an orbax directory of the JAX
     package, a bare weights file, a newer format."""
     path = Path(path)
@@ -602,9 +637,16 @@ def load_checkpoint(path: str | Path) -> tuple[dict[str, torch.Tensor], dict[str
             f"{path}: checkpoint format {meta.get('format')!r} version {meta.get('version')!r} "
             f"is not {CHECKPOINT_FORMAT!r} <= {CHECKPOINT_VERSION}"
         )
+    return meta
+
+
+def load_checkpoint(path: str | Path) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
+    """``(state, manifest)`` of a directory written by :func:`save_checkpoint`
+    (anything else raises as :func:`read_manifest`)."""
     from safetensors.torch import load_file
 
-    return load_file(str(path / STATE_FILE)), meta
+    meta = read_manifest(path)
+    return load_file(str(Path(path) / STATE_FILE)), meta
 
 
 def checkpoint_state(

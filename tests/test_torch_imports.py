@@ -95,6 +95,8 @@ REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.tools.bench_writer",
     "kobato_eyes_tpu_torch.tools.migrate_data",
     "kobato_eyes_tpu_torch.tools.coverage_gate",
+    "kobato_eyes_tpu_torch.models.eva02",
+    "kobato_eyes_tpu_torch.ops.rope",
 ]
 
 COPIED = [
