@@ -52,6 +52,12 @@ batch 32, random seeded weights):
   forward beside the f32-weight one; ``refresh``, ``retag``, the watcher
   (batch-of-one tag jobs on worker threads) and the host commands against
   SQL, ``reset`` last;
+* LayerNorm: the one-pass kernel (``ops/layernorm.py``) bit-equal to its
+  plain version at every LayerNorm shape of the three tagging cells at
+  batch 32 and on shifted, misaligned and strided rows, each timed beside
+  its byte bound and the modules' op-by-op chain; 25 / 53 / 73 launches a
+  ViT-B, SwinV2-B and EVA02-L forward, none under autograd, and the same
+  counts in the taggers' graph replays;
 * GELU: the erf and tanh pass (bf16 and f32) and its gradient against
   their plain versions, in bf16 through the tables (``"lut"``) on all 65 536
   bf16 inputs and at ViT-B/448's and SwinV2-B/448's MLP shapes, timed beside
@@ -834,6 +840,195 @@ def layernorm_residual_phase() -> dict:
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
         "library_ms": library_ms,
+    }
+
+
+# LayerNorm shapes of the tagging cells at batch 32: (name, rows, C, x dtype,
+# output dtype, post-norm, launches a forward)
+LN_SHAPES = (
+    ("vit.norm1", BATCH * 785, 768, "bf16", "bf16", False, 13),  # and the final norm
+    ("vit.norm2", BATCH * 785, 768, "f32", "bf16", False, 12),  # the f32 attention residual
+    ("eva02.norm", BATCH * 1025, 1024, "bf16", "bf16", False, 48),
+    ("eva02.sub_norm", BATCH * 1025, 2730, "bf16", "bf16", False, 24),
+    ("eva02.fc_norm", BATCH, 1024, "bf16", "bf16", False, 1),
+    *((f"swin.post{s}", BATCH * (112 >> s) ** 2, 128 << s, "bf16", "bf16", True, 2 * SWIN_B448_DEPTHS[s])
+      for s in range(4)),
+    *((f"swin.norm{s}", BATCH * (112 >> s) ** 2, 128 << s, "bf16", "bf16", False, 1 + (s == 3)) for s in range(4)),
+)
+LN_FORWARD_LAUNCHES = {"vit": 25, "eva02": 73, "swinv2": 53}
+LN_NAME = r"layernorm_rows_kernel"
+
+
+def layernorm_phase() -> dict:
+    """The LayerNorm kernel (``ops/layernorm.py``) on the card: torch's CUDA
+    ``mean`` is the sum times fl(1/C); the kernel bit-equal to its plain
+    version at every LayerNorm shape of the three tagging cells at batch 32
+    (f32 forms too), on rows 2 and 8 bytes off alignment and 1552 / 1540
+    bytes apart, with bf16 parameters; each shape timed through a CUDA graph,
+    cold over rotating inputs, beside its byte bound and the modules'
+    op-by-op chain; the share of bf16 outputs a step apart from the chain;
+    one forward of ViT-B/448, SwinV2-B/448 and EVA02-L/448 launching it 25,
+    53 and 73 times, and a ViT forward under autograd none. Returns the
+    kernels line's entry."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from kobato_eyes_tpu_torch.models import eva02, swin, vit
+    from kobato_eyes_tpu_torch.ops import layernorm as lnk
+
+    dev = torch.device("cuda")
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    x = torch.tensor([[7.0, 0.0, 0.0]], device=dev)
+    mean = float(x.mean(dim=-1))
+    check(mean == float(np.float32(7) * (np.float32(1) / np.float32(3))),
+          f"torch's CUDA mean of (7, 0, 0) is {mean!r}, not 7 * fl(1/3)")
+    print(f"layernorm: torch's CUDA mean of (7, 0, 0) = {mean!r} = 7 * fl(1/3) (7 / 3 rounds to 2.3333332538604736)")
+
+    def inputs(rows, c, x_dt, out_dt, post, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        xs = (torch.randn(rows, c, generator=g, device=dev) * 3 + 0.5).to(x_dt)
+        sc = torch.randn(rows, c, generator=g, device=dev).to(out_dt) if post else None
+        w = torch.rand(c, generator=g, device=dev) * 1.5 + 0.5
+        return xs, sc, w, torch.randn(c, generator=g, device=dev)
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    def chain(xs, sc, w, b, out_dt):
+        """The module's op-by-op chain (takes_kernel answering no)."""
+        c = xs.shape[-1]
+        if sc is None:
+            m = vit.LayerNorm(c, vit.vit_config("tiny", dtype=out_dt), eps=1e-5).to(dev)
+        else:
+            m = swin.ResidualPostNorm(c, swin.swin_config("tiny", image_size=224, dtype=out_dt)).to(dev)
+        with torch.no_grad():
+            m.weight.copy_(w)
+            m.bias.copy_(b)
+        m.requires_grad_(False)
+        return (lambda: m(xs, sc)) if sc is not None else (lambda: m(xs))
+
+    takes = lnk.takes_kernel
+    cases = [(n, r, c, dt[a], dt[o], p) for n, r, c, a, o, p, _ in LN_SHAPES]
+    cases += [("f32.norm", 4096, 768, torch.float32, torch.float32, False),
+              ("f32.sub_norm", 4096, 2730, torch.float32, torch.float32, False),
+              ("f32.post0", 4096, 128, torch.float32, torch.float32, True),
+              ("f32.post3", 4096, 1024, torch.float32, torch.float32, True),
+              ("odd.norm", 4099, 1023, torch.bfloat16, torch.bfloat16, False),
+              ("odd.post", 4099, 130, torch.bfloat16, torch.bfloat16, True),
+              ("f32.odd", 4099, 2731, torch.float32, torch.float32, False),
+              ("wide.post", 1031, 4095, torch.bfloat16, torch.bfloat16, True)]
+    equal = 0
+    for i, (name, rows, c, x_dt, out_dt, post) in enumerate(cases):
+        xs, sc, w, b = inputs(rows, c, x_dt, out_dt, post, 100 + i)
+        for params in (torch.float32, torch.bfloat16):
+            wp, bp = w.to(params), b.to(params)
+            got = lnk.layernorm(xs, wp, bp, eps=1e-5, dtype=out_dt, shortcut=sc)
+            want = lnk.layernorm_plain(xs, wp, bp, eps=1e-5, dtype=out_dt, shortcut=sc)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(bits(got), bits(want))),
+                  f"layernorm {name} params {params}: kernel differs from its plain version "
+                  f"({int((got != want).sum())} outputs)")
+            equal += 1
+    for post in (False, True):
+        for offset, pitch, params in ((2, 768, torch.float32), (8, 768, torch.float32), (0, 776, torch.bfloat16),
+                                      (4, 770, torch.float32)):
+            flat = torch.randn(997 * pitch + 8, device=dev).to(torch.bfloat16)
+            xs = flat[offset // 2:][: 997 * pitch].view(997, pitch)[:, :768]
+            sc = torch.randn(997, 768, device=dev).to(torch.bfloat16) if post else None
+            w, b = (torch.randn(768, device=dev).to(params) for _ in range(2))
+            body = lnk.layout(*lnk.operands(xs, torch.bfloat16, sc))
+            got = lnk.layernorm(xs, w, b, eps=1e-5, dtype=torch.bfloat16, shortcut=sc)
+            want = lnk.layernorm_plain(xs, w, b, eps=1e-5, dtype=torch.bfloat16, shortcut=sc)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(bits(got), bits(want))),
+                  f"layernorm {offset} bytes off, pitch {pitch}, post {post}, body {body}: kernel differs")
+            equal += 1
+    print(f"layernorm: kernel bit-equal to its plain version in {equal} cases: every LayerNorm shape of the "
+          f"tagging cells at batch 32 (f32 and bf16 parameters), f32 forms, misaligned and strided rows")
+
+    regs = ptxas_registers("layernorm.cu")
+    if regs:
+        print(f"layernorm: {len(regs)} instances, {min(regs.values())}-{max(regs.values())} registers; the cells' "
+              + ", ".join(f"{n}: {v}" for n, v in sorted(regs.items())
+                          if re.search(r"I13__nv_bfloat16S1_Li8ELi(16ELi1|32ELi(1|2|4|12))E|If13__nv_bfloat16Li4ELi32ELi8E", n)))
+
+    # Times through CUDA graphs, cold: 24 calls walk over copies of the inputs
+    # that together exceed the 50 MB L2 several times, as the byte bound assumes.
+    per_shape = {}
+    for i, (name, rows, c, a, o, post, count) in enumerate(LN_SHAPES):
+        x_dt, out_dt = dt[a], dt[o]
+        xs, sc, w, b = inputs(rows, c, x_dt, out_dt, post, 200 + i)
+        moved = rows * c * (xs.element_size() + torch.empty((), dtype=out_dt).element_size() * (2 if post else 1))
+        copies = min(24, -(-400_000_000 // moved))
+        sets = [(xs, sc)] + [(xs.clone(), None if sc is None else sc.clone()) for _ in range(copies - 1)]
+
+        def calls(fn, n=24):
+            return [lambda p=p: fn(*p) for p in (sets[j % len(sets)] for j in range(n))]
+
+        ms = cuda_graph_ms(calls(lambda u, s: lnk.layernorm(u, w, b, eps=1e-5, dtype=out_dt, shortcut=s)))
+        lnk.takes_kernel = lambda *args: False
+        try:
+            chains = [chain(u, s, w, b, out_dt) for u, s in sets]
+            chain_ms = cuda_graph_ms([chains[j % len(chains)] for j in range(24)])
+            g_out, c_out = lnk.layernorm(xs, w, b, eps=1e-5, dtype=out_dt, shortcut=sc), chains[0]()
+        finally:
+            lnk.takes_kernel = takes
+        apart = float((g_out != c_out).float().mean())
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        per_shape[name] = (ms, chain_ms, bound, count)
+        print(f"layernorm {name} ({rows}, {c}) {a} -> {o}{' + shortcut' if post else ''}, body "
+              f"{lnk.layout(*lnk.operands(xs, out_dt, sc))}, cold over {copies} input sets (CUDA graph): kernel "
+              f"{ms:.4f} ms ({ms / bound:.2f}x the bound, {moved / ms / 1e6:.0f} GB/s), chain {chain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({moved / 1e6:.1f} MB); {apart:.4%} of outputs apart from the chain; "
+              f"{count} a forward")
+        check(apart <= 0.01, f"layernorm {name}: {apart:.4%} of outputs apart from the chain")
+        del sets, xs, sc
+    for arch, prefix in (("vit", "vit."), ("eva02", "eva02."), ("swinv2", "swin.")):
+        ks, cs, bs = (sum(v[j] * v[3] for k, v in per_shape.items() if k.startswith(prefix)) for j in range(3))
+        print(f"layernorm a {arch} forward at batch 32: kernel {ks:.3f} ms, chain {cs:.3f} ms, bound {bs:.3f} ms")
+
+    # launches a forward, and none under autograd
+    forwards = (
+        ("vit", lambda: vit.ViT(vit.vit_config("base", image_size=448, num_classes=N_LABELS)), 448),
+        ("swinv2", lambda: swin.SwinV2(swin.swin_config("base", image_size=448, num_classes=N_LABELS)), 448),
+        ("eva02", lambda: eva02.EVA02(eva02.eva02_config("large", image_size=448, num_classes=N_LABELS)), 448),
+    )
+    for arch, make, size in forwards:
+        model = make().to(dev)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.normal_(0, 0.02)
+        images = torch.randn(2, size, size, 3, device=dev)
+        before = lnk.launches
+        with torch.inference_mode():
+            out = model(images)
+        torch.cuda.synchronize()
+        n = lnk.launches - before
+        check(n == LN_FORWARD_LAUNCHES[arch] and bool(torch.isfinite(out).all()),
+              f"{arch}: {n} LayerNorm launches a forward, not {LN_FORWARD_LAUNCHES[arch]}")
+        if arch == "vit":
+            before = lnk.launches
+            model(images[:1]).float().sum().backward()
+            torch.cuda.synchronize()
+            check(lnk.launches == before, f"vit: {lnk.launches - before} LayerNorm launches under autograd")
+        print(f"layernorm: {arch} forward {n} launches" + ("; under autograd 0" if arch == "vit" else ""))
+        del model, images, out
+        torch.cuda.empty_cache()
+    ms, chain_ms, bound, _ = per_shape["eva02.sub_norm"]
+    return {
+        "name": "layernorm_rows",
+        "route": "cuda",
+        "source": "kobato_eyes_tpu_torch/csrc/layernorm.cu",
+        "replaces": None,  # not a TPU kernel: the modules' LayerNorms, which XLA fuses in the JAX package
+        "launches": None,  # filled from the tagger's forwards
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": chain_ms,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": None,
     }
 
 
@@ -4577,7 +4772,7 @@ KERNEL1_NAME = r"attn_wgmma_kernel<\d+, ?(true|false), ?false>|attn_fma_kernel"
 KERNEL3_NAME = r"win_attn_(mma|rows)_kernel"
 
 
-def tagger_graph_phase() -> dict:
+def tagger_graph_phase() -> int:
     """The ViT-B/448 and SwinV2-B/448 taggers (the benchmark's knobs: bf16,
     kernel 1 or 3, the erf GELU, ``ln_impl="xla"``) through
     ``dispatch_batch_prepared`` / ``complete_batch_prepared`` at depth 3:
@@ -4585,10 +4780,11 @@ def tagger_graph_phase() -> dict:
     the thresholds overridden partway. Every batch's scores, indices and hit
     counts equal, bit for bit, the same batch's eager device work with the
     same thresholds; each shape runs eager once, captures once, then
-    replays; the launch counters count every replayed launch; a profiled
-    window of replays holds each forward's kernels (12 kernel-1 launches a
-    ViT batch, 24 window launches a SwinV2 batch) under ``tagger.replay``.
-    Returns the host milliseconds a pipelined batch took, by arch."""
+    replays; the launch counters count every replayed launch (25 LayerNorm
+    launches a ViT forward, 53 a SwinV2 one); a profiled window of replays
+    holds each forward's kernels (12 kernel-1 launches a ViT batch, 24
+    window launches a SwinV2 batch, 25 / 53 LayerNorm launches) under
+    ``tagger.replay``. Returns the LayerNorm kernel's launches."""
     import dataclasses
     import re
 
@@ -4600,13 +4796,13 @@ def tagger_graph_phase() -> dict:
     from kobato_eyes_tpu_torch.models.swin import swin_config
     from kobato_eyes_tpu_torch.models.tagger import WD14Tagger, fetch
     from kobato_eyes_tpu_torch.models.vit import vit_config
-    from kobato_eyes_tpu_torch.ops import attention, gelu, window_attention, xla_math
+    from kobato_eyes_tpu_torch.ops import attention, gelu, layernorm, window_attention, xla_math
 
     labels = synthetic_labels(N_LABELS)
     rng = np.random.default_rng(20)
     pixels = {b: [rng.integers(0, 256, size=(b, 448, 448, 3), dtype=np.uint8) for _ in range(3)] for b in (BATCH, 5)}
     override = {0: 0.6, 4: 0.5}
-    cycle_ms = {}
+    cycle_ms, ln_launches = {}, 0
     for arch in ("vit", "swinv2"):
         make = vit_config if arch == "vit" else swin_config
         cfg = dataclasses.replace(make("base", image_size=448, num_classes=N_LABELS), attn_impl="pallas", act="gelu")
@@ -4623,7 +4819,8 @@ def tagger_graph_phase() -> dict:
             return out
 
         want = {(b, i, t is None): eager(b, i, t) for b, i, t, _ in plan}
-        counters = (attention.launches, window_attention.launches, gelu.launches, xla_math.launches)
+        counters = (attention.launches, window_attention.launches, gelu.launches, xla_math.launches,
+                    layernorm.launches)
         handles, got = [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4636,7 +4833,9 @@ def tagger_graph_phase() -> dict:
         got += [(key, handle[0].wait()) for key, handle in handles]
         cycle_ms[arch] = (time.perf_counter() - t0) * 1e3 / len(plan)
         moved = [now - before for now, before in zip(
-            (attention.launches, window_attention.launches, gelu.launches, xla_math.launches), counters)]
+            (attention.launches, window_attention.launches, gelu.launches, xla_math.launches, layernorm.launches),
+            counters)]
+        ln_launches += moved[-1]
         for n, (key, arrays) in enumerate(got):
             for name, a, w in zip(("scores", "indices", "hits"), arrays, want[key]):
                 check(a.dtype == w.dtype and np.array_equal(a, w),
@@ -4645,10 +4844,11 @@ def tagger_graph_phase() -> dict:
         counts = (tagger.eager_dispatches, tagger.graph_captures, tagger.graph_replays)
         check(counts == (2, 2, len(plan) - 2), f"{arch}: eager / captures / replays {counts}")
         depth = cfg.depth if arch == "vit" else sum(cfg.depths)
-        expected = [depth * len(plan), 0, depth * len(plan), len(plan)]
+        expected = [depth * len(plan), 0, depth * len(plan), len(plan), LN_FORWARD_LAUNCHES[arch] * len(plan)]
         if arch != "vit":
             expected[:2] = [0, depth * len(plan)]
-        check(moved == expected, f"{arch}: launches (kernel 1, window, gelu, sigmoid) {moved} != {expected}")
+        check(moved == expected,
+              f"{arch}: launches (kernel 1, window, gelu, sigmoid, layernorm) {moved} != {expected}")
 
         # a profiled window of replays: the forward's kernels inside each
         name = KERNEL1_NAME if arch == "vit" else KERNEL3_NAME
@@ -4658,18 +4858,20 @@ def tagger_graph_phase() -> dict:
             torch.cuda.synchronize()
         events = list(prof.profiler.kineto_results.events())
         kernels = [ev for ev in events if str(ev.device_type()).endswith("CUDA") and re.search(name, ev.name())]
+        norms = [ev for ev in events if str(ev.device_type()).endswith("CUDA") and re.search(LN_NAME, ev.name())]
         replays = [ev for ev in events if ev.name() == "tagger.replay" and not str(ev.device_type()).endswith("CUDA")]
         device_ops = sum(1 for ev in events if str(ev.device_type()).endswith("CUDA") and not ev.is_user_annotation())
         print(f"tagger graph {arch}-b448: {len(plan)} dispatches at depth 3 (B = {BATCH} then 5, 2 with "
               f"thresholds overridden, 2 from device tensors) bit-equal to the eager work; eager / captures / "
-              f"replays {counts}; launches (kernel 1, window, gelu, sigmoid) {moved}; {cycle_ms[arch]:.2f} ms "
-              f"a batch (host, captures included); profiled: {len(replays)} replay spans, {len(kernels)} "
-              f"{'kernel-1' if arch == 'vit' else 'window'} launches, {device_ops} device operations")
-        check(len(replays) == 4 and len(kernels) == 4 * depth,
-              f"{arch}: profiled {len(replays)} replays and {len(kernels)} of {name}, not 4 and {4 * depth}")
+              f"replays {counts}; launches (kernel 1, window, gelu, sigmoid, layernorm) {moved}; "
+              f"{cycle_ms[arch]:.2f} ms a batch (host, captures included); profiled: {len(replays)} replay spans, "
+              f"{len(kernels)} {'kernel-1' if arch == 'vit' else 'window'} and {len(norms)} LayerNorm launches "
+              f"({sum(ev.duration_ns() for ev in norms) / 4e6:.3f} ms a batch), {device_ops} device operations")
+        check(len(replays) == 4 and len(kernels) == 4 * depth and len(norms) == 4 * LN_FORWARD_LAUNCHES[arch],
+              f"{arch}: profiled {len(replays)} replays, {len(kernels)} of {name} and {len(norms)} LayerNorm launches")
         del tagger
         torch.cuda.empty_cache()
-    return cycle_ms
+    return ln_launches
 
 
 EVA02_L448 = dict(batch=32, tokens=1025, heads=16, head_dim=64)
@@ -4689,7 +4891,7 @@ def pixai_labels(general: int = 9461, characters: int = 4000, series: int = 1000
     return labels
 
 
-def eva02_phase() -> dict:
+def eva02_phase() -> tuple[dict, int]:
     """The PixAI tagger's EVA02-L/448 backbone on the card. The RoPE kernel
     (``ops/rope.py``) bit-equal to its plain version on the packed (32, 1025,
     3, 16, 64) projection in bf16 and f32 and on a strided slice, v and the
@@ -4703,7 +4905,8 @@ def eva02_phase() -> dict:
     every replayed batch's scores, indices and probability rows bit-equal to
     the same batch's eager work, one eager dispatch, one capture, 24 RoPE and
     24 kernel-1 launches a forward, and a profiled window of replays holding
-    them. Returns the RoPE kernel's entry of the kernels line."""
+    them, and 73 LayerNorm launches a forward. Returns the RoPE kernel's
+    entry of the kernels line and the LayerNorm kernel's launches."""
     import dataclasses
     import re
 
@@ -4714,7 +4917,7 @@ def eva02_phase() -> dict:
 
     from kobato_eyes_tpu_torch.models.eva02 import EVA02, eva02_config, rope_table
     from kobato_eyes_tpu_torch.models.tagger import PixaiTagger, fetch
-    from kobato_eyes_tpu_torch.ops import attention, rope
+    from kobato_eyes_tpu_torch.ops import attention, layernorm, rope
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4808,7 +5011,7 @@ def eva02_phase() -> dict:
         return out
 
     want = {(i, th is None): eager(i, th) for i, th, _ in plan}
-    before = (rope.launches, attention.launches)
+    before = (rope.launches, attention.launches, layernorm.launches)
     handles, got = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4821,6 +5024,7 @@ def eva02_phase() -> dict:
     got += [(key, handle[0].wait()) for key, handle in handles]
     cycle_ms = (time.perf_counter() - t0) * 1e3 / len(plan)
     moved = [rope.launches - before[0], attention.launches - before[1]]
+    ln_moved = layernorm.launches - before[2]
     for n, (key, arrays) in enumerate(got):
         for name, a, w in zip(("scores", "indices", "probs"), arrays, want[key]):
             check(a.dtype == w.dtype and np.array_equal(a, w),
@@ -4828,6 +5032,7 @@ def eva02_phase() -> dict:
     counts = (tagger.eager_dispatches, tagger.graph_captures, tagger.graph_replays)
     check(counts == (1, 1, len(plan) - 1), f"eva02: eager / captures / replays {counts}")
     check(moved == [cfg.depth * len(plan)] * 2, f"eva02: launches (rope, kernel 1) {moved} != {cfg.depth * len(plan)} each")
+    check(ln_moved == LN_FORWARD_LAUNCHES["eva02"] * len(plan), f"eva02: {ln_moved} LayerNorm launches")
     rows = tagger.complete_batch_prepared(tagger.dispatch_batch_prepared(pixels[0]))
     copyrights = sum(1 for r in rows for tag in r.tags if int(tag.category) == 3)
     check(copyrights > 0, "eva02: no copyright reached a row")
@@ -4840,6 +5045,7 @@ def eva02_phase() -> dict:
     on_card = [ev for ev in events if str(ev.device_type()).endswith("CUDA") and not ev.is_user_annotation()]
     ropes = [ev for ev in on_card if re.search(ROPE_NAME, ev.name())]
     kernel1 = [ev for ev in on_card if re.search(KERNEL1_NAME, ev.name())]
+    norms = [ev for ev in on_card if re.search(LN_NAME, ev.name())]
     replays = [ev for ev in events if ev.name() == "tagger.replay" and not str(ev.device_type()).endswith("CUDA")]
     busy_ms = sum(ev.duration_ns() for ev in on_card) / 1e6 / 4
     by_name: dict[str, float] = {}
@@ -4848,14 +5054,18 @@ def eva02_phase() -> dict:
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     print(f"tagger graph pixai-eva02-l448: {len(plan)} dispatches at depth 3 (B = {b}, 2 with thresholds "
           f"overridden, 1 from a device tensor) bit-equal to the eager work (scores, indices, probability rows); "
-          f"eager / captures / replays {counts}; launches (rope, kernel 1) {moved}; {cycle_ms:.2f} ms a batch "
+          f"eager / captures / replays {counts}; launches (rope, kernel 1) {moved}, LayerNorm {ln_moved}; "
+          f"{cycle_ms:.2f} ms a batch "
           f"(host, the capture included); {copyrights} copyrights in a batch's rows; profiled: {len(replays)} "
-          f"replay spans, {len(ropes)} rope and {len(kernel1)} kernel-1 launches, {busy_ms:.2f} ms of device "
+          f"replay spans, {len(ropes)} rope, {len(kernel1)} kernel-1 and {len(norms)} LayerNorm launches "
+          f"({sum(ev.duration_ns() for ev in norms) / 4e6:.3f} ms a batch), {busy_ms:.2f} ms of device "
           f"operations a batch")
     for name, ms in top:
         print(f"  eva02 device ms a batch {ms:8.3f}  {name[:110]}")
-    check(len(replays) == 4 and len(ropes) == 4 * cfg.depth and len(kernel1) == 4 * cfg.depth,
-          f"eva02: profiled {len(replays)} replays, {len(ropes)} rope, {len(kernel1)} kernel-1 launches")
+    check(len(replays) == 4 and len(ropes) == 4 * cfg.depth and len(kernel1) == 4 * cfg.depth
+          and len(norms) == 4 * LN_FORWARD_LAUNCHES["eva02"],
+          f"eva02: profiled {len(replays)} replays, {len(ropes)} rope, {len(kernel1)} kernel-1, "
+          f"{len(norms)} LayerNorm launches")
     del tagger, model
     torch.cuda.empty_cache()
     return {
@@ -4870,7 +5080,7 @@ def eva02_phase() -> dict:
         "bound_ms": rope_bound,
         "bound_by": "bytes",
         "library_ms": None,
-    }
+    }, ln_moved
 
 
 def card_line() -> str:
@@ -4906,14 +5116,16 @@ def main() -> int:
     attn, attn_separate = attention_phase()
     window = window_attention_phase()
     ln = layernorm_residual_phase()
+    lnorm = layernorm_phase()
     act, act_backward = gelu_phase()
     flash_fwd, flash_dkv, flash_dq = flash_attention_phase()
     sigmoid = sigmoid_phase()
     hamming = pairwise_hamming_phase()
-    tagger_graph_phase()
-    rope_entry = eva02_phase()
+    lnorm["launches"] = tagger_graph_phase()
+    rope_entry, eva02_norms = eva02_phase()
+    lnorm["launches"] += eva02_norms
     kernels = [attn, attn_separate, window, ln, hamming, act, act_backward, sigmoid, flash_fwd, flash_dkv, flash_dq,
-               rope_entry]
+               rope_entry, lnorm]
     work_root = REPO / "build"
     work_root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_root))

@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from kobato_eyes_tpu_torch.models.vit import LayerNorm, Linear, Mlp
-from kobato_eyes_tpu_torch.ops import xla_math
+from kobato_eyes_tpu_torch.ops import layernorm, xla_math
 from kobato_eyes_tpu_torch.ops.layernorm_residual import layernorm_residual
 from kobato_eyes_tpu_torch.ops.window_attention import windowed_cosine_attention_packed
 
@@ -231,8 +231,11 @@ class ResidualPostNorm(nn.Module):
     E[x^2] - E[x]^2 and no clamp (unlike flax's ``nn.LayerNorm``, which
     ``vit.LayerNorm`` copies), XLA's CPU rsqrt (``xla_math.rsqrt``, as
     ``jax.lax.rsqrt`` there), the normalised value rounded to ``dtype``, then
-    added to the shortcut in ``dtype``. ``"pallas_residual"`` goes to the
-    CUDA kernel, which adds in f32 and rounds once.
+    added to the shortcut in ``dtype``; on a CUDA tensor while autograd does
+    not record (``layernorm.takes_kernel``) one pass of the LayerNorm kernel
+    computes the same (``ops/layernorm.py``: the statistics summed in its own
+    order). ``"pallas_residual"`` goes to the residual LayerNorm kernel,
+    which adds in f32 and rounds once.
     """
 
     def __init__(self, dim: int, cfg: SwinConfig) -> None:
@@ -245,6 +248,8 @@ class ResidualPostNorm(nn.Module):
         cfg = self.cfg
         if cfg.ln_impl == "pallas_residual":
             return layernorm_residual(x, shortcut.to(cfg.dtype), self.weight, self.bias, eps=1e-5)
+        if layernorm.takes_kernel(x, self.weight, self.bias, shortcut):
+            return layernorm.layernorm(x, self.weight, self.bias, eps=1e-5, dtype=cfg.dtype, shortcut=shortcut)
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean

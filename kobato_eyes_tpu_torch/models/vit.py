@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kobato_eyes_tpu_torch.ops import xla_math
+from kobato_eyes_tpu_torch.ops import layernorm, xla_math
 from kobato_eyes_tpu_torch.ops.gelu import gelu
 
 
@@ -159,7 +159,10 @@ class Linear(nn.Module):
 class LayerNorm(nn.Module):
     """flax LayerNorm: f32 statistics with the fast variance
     ``max(E[x^2] - E[x]^2, 0)``, eps inside the rsqrt (XLA's CPU rsqrt, which
-    flax's ``lax.rsqrt`` is there: ``xla_math.rsqrt``), output in ``dtype``."""
+    flax's ``lax.rsqrt`` is there: ``xla_math.rsqrt``), output in ``dtype``.
+    On a CUDA tensor while autograd does not record (``layernorm.takes_kernel``)
+    one pass of the LayerNorm kernel computes the same (``ops/layernorm.py``:
+    the statistics summed in its own order)."""
 
     def __init__(self, dim: int, cfg: Any, eps: float = 1e-5) -> None:
         super().__init__()
@@ -169,6 +172,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, dtype=cfg.param_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if layernorm.takes_kernel(x, self.weight, self.bias):
+            return layernorm.layernorm(x, self.weight, self.bias, eps=self.eps, dtype=self.dtype)
         xf = x.float()
         mu = xf.mean(dim=-1, keepdim=True)
         mu2 = (xf * xf).mean(dim=-1, keepdim=True)
