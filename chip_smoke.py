@@ -4651,10 +4651,11 @@ def bench_phase(work: Path) -> dict[str, int]:
     check(dup["value"] > 0 and dup["vs_baseline"] > 0, "bench: no rate")
 
     # tagger throughput: 256 synthetic images at batch 32, so 8 batches: 4
-    # latency batches (1 warm-up + 3), 7 timed, 1 counted forward
+    # latency batches (1 warm-up + 3), 2 dispatches that capture the graph, 7
+    # timed, 1 counted forward
     depth, batches = 12, N_IMAGES // BATCH
     doc, counts = run_tool("tools.bench_tagger", [])
-    forwards = min(batches, 4) + (batches - 1) + 1
+    forwards = min(batches, 4) + 2 + (batches - 1) + 1
     _expect_launches("bench_tagger", counts, attention=depth * forwards, gelu=depth * forwards,
                      sigmoid=forwards, window=0, layernorm=0)
     mfu = doc["roofline"]["mfu"]
@@ -4665,7 +4666,7 @@ def bench_phase(work: Path) -> dict[str, int]:
                          cut=f"bench_tagger --synthetic {BENCH_PROFILE_IMAGES} --profile: a second, small run "
                              "for the trace (the profiler's own cost stays out of the run above)")
     small = BENCH_PROFILE_IMAGES // BATCH
-    forwards = min(small, 4) + (small - 1) + 1
+    forwards = min(small, 4) + 2 + (small - 1) + 1
     _expect_launches("bench_tagger --profile", counts, attention=depth * forwards)
     add(counts)
     rows = trace_ops.summarize(trace_ops.load_trace(prof), device="cuda")
@@ -4793,8 +4794,9 @@ def tagger_graph_phase() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from kobato_eyes_tpu_torch.models.labels import synthetic_labels
+    from kobato_eyes_tpu_torch.models.graph_dispatch import fetch
     from kobato_eyes_tpu_torch.models.swin import swin_config
-    from kobato_eyes_tpu_torch.models.tagger import WD14Tagger, fetch
+    from kobato_eyes_tpu_torch.models.tagger import WD14Tagger
     from kobato_eyes_tpu_torch.models.vit import vit_config
     from kobato_eyes_tpu_torch.ops import attention, gelu, layernorm, window_attention, xla_math
 
@@ -4916,7 +4918,8 @@ def eva02_phase() -> tuple[dict, int]:
     from torch.profiler import ProfilerActivity, profile
 
     from kobato_eyes_tpu_torch.models.eva02 import EVA02, eva02_config, rope_table
-    from kobato_eyes_tpu_torch.models.tagger import PixaiTagger, fetch
+    from kobato_eyes_tpu_torch.models.graph_dispatch import fetch
+    from kobato_eyes_tpu_torch.models.tagger import PixaiTagger
     from kobato_eyes_tpu_torch.ops import attention, layernorm, rope
 
     torch.backends.cuda.matmul.allow_tf32 = False

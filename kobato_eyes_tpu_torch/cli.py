@@ -524,33 +524,25 @@ def cmd_import_weights(args) -> int:
     checkpoint directory (``models/tagger.save_checkpoint``), which
     ``tagger.model_path`` / ``index.checkpoint`` then name. The conversion
     runs on the host: no device is touched."""
+    from kobato_eyes_tpu_torch.models.archs import ARCHS
     from kobato_eyes_tpu_torch.models.import_weights import import_torch_checkpoint
     from kobato_eyes_tpu_torch.models.tagger import save_checkpoint
     from kobato_eyes_tpu_torch.utils.hashing import compute_sha256
 
-    preset = args.preset or ("large" if args.arch == "eva02" else "base")
-    manifest = {"arch": args.arch, "preset": preset, "clip_variant": None}
-    if args.arch == "swinv2":
-        from kobato_eyes_tpu_torch.models.swin import swin_config
-
-        cfg = swin_config(preset, image_size=args.image_size, num_classes=args.classes)
-        manifest["num_classes"] = args.classes
-    elif args.arch == "eva02":
-        from kobato_eyes_tpu_torch.models.eva02 import eva02_config
-
-        cfg = eva02_config(preset, image_size=args.image_size, num_classes=args.classes)
-        manifest["num_classes"] = args.classes
-    elif args.arch == "clip":
+    if args.arch == "clip":
         from kobato_eyes_tpu_torch.index.embedder import embedder_config
 
+        preset = args.preset or "base"
         cfg = embedder_config(preset, args.image_size, 32, args.classes, args.clip_variant)
-        manifest.update(embed_dim=args.classes, clip_variant=args.clip_variant)
+        manifest = {"embed_dim": args.classes, "clip_variant": args.clip_variant}
     else:
-        from kobato_eyes_tpu_torch.models.vit import vit_config
-
-        cfg = vit_config(preset, image_size=args.image_size, num_classes=args.classes)
-        manifest["num_classes"] = args.classes
-    manifest.update(image_size=cfg.image_size, patch_size=cfg.patch_size)
+        arch = ARCHS.get(args.arch)
+        if arch is None:
+            raise SystemExit(f"unknown arch {args.arch!r} ({' | '.join([*ARCHS, 'clip'])})")
+        preset = args.preset or arch.default_preset
+        cfg = arch.preset_config(preset, image_size=args.image_size, num_classes=args.classes)
+        manifest = {"num_classes": args.classes, "clip_variant": None}
+    manifest.update(arch=args.arch, preset=preset, image_size=cfg.image_size, patch_size=cfg.patch_size)
     src = Path(args.state_dict)
     manifest["source"] = {"name": src.name, "sha256": None if src.is_dir() else compute_sha256(src)}
     save_checkpoint(args.out, import_torch_checkpoint(src, cfg), manifest=manifest)
@@ -1000,7 +992,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("state_dict", help=".pth/.pt/.safetensors/.onnx file")
     p.add_argument("out", help="output checkpoint directory")
-    p.add_argument("--arch", choices=["swinv2", "vit", "eva02", "clip"], default="swinv2")
+    p.add_argument("--arch", default="swinv2", help="a tagger arch (models/archs.py) or clip (default: swinv2)")
     p.add_argument("--preset", help="model size (default: large for eva02, else base)")
     p.add_argument("--image-size", type=int, default=448)
     p.add_argument("--classes", type=int, default=8192,

@@ -64,6 +64,13 @@ def unpack(flat: np.ndarray, layout: Layout) -> list[np.ndarray]:
     return out
 
 
+def fetch(tensors: Sequence[torch.Tensor]) -> list[np.ndarray]:
+    """Small result tensors copied to the host in one transfer (one sync),
+    each back in its own dtype and shape."""
+    flat, layout = pack(tensors)
+    return unpack(flat.cpu().numpy(), layout)
+
+
 def dispatch_mode(device: torch.device, on_mesh: bool, ran_here: bool, captured: bool) -> str:
     """How a dispatch of a key runs: ``"eager"``, ``"capture"`` (then
     replay) or ``"replay"``. ``ran_here``: the calling thread has run the
@@ -189,21 +196,21 @@ class BatchGraphs:
         key: Hashable,
         batch: np.ndarray | torch.Tensor,
         *,
-        eager: Callable[[], Sequence[torch.Tensor]],
+        upload: Callable[[Any], torch.Tensor],
         work: Callable[[torch.Tensor], Sequence[torch.Tensor]],
     ) -> InFlight:
         """Run one batch's device work and start its copy to the host.
 
-        ``eager()`` computes the result tensors op by op, uploading the
-        batch itself; ``work(x)`` computes the same from the device tensor
-        ``x`` holding the batch, and is what a capture records."""
+        ``work(x)`` computes the result tensors from ``x = upload(batch)``,
+        the batch on the device, op by op; a capture records it reading the
+        static input buffer that the batch is copied into instead."""
         entry = self._entry(key)
         thread = threading.get_ident()
         mode = dispatch_mode(self.device, self.on_mesh, thread in entry.eager_threads, entry.graph is not None)
         if mode == "eager":
             self.eager_dispatches += 1
             entry.eager_threads.add(thread)
-            return self._send(*pack(eager()))
+            return self._send(*pack(work(upload(batch))))
         source = batch if isinstance(batch, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(batch))
         with torch.cuda.device(self.device):
             if mode == "capture":

@@ -54,6 +54,28 @@ def _tensor(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(_np(x), dtype=np.float32, order="C"))
 
 
+def _get(state: Mapping[str, Any], key: str) -> np.ndarray:
+    if key not in state:
+        raise KeyError(f"missing weight {key!r}")
+    return _np(state[key])
+
+
+def _at(key: str, arr: np.ndarray, want: Sequence[int]) -> torch.Tensor:
+    """``arr`` as an f32 tensor, held to the manifest's shape ``want``."""
+    if tuple(arr.shape) != tuple(want):
+        raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {tuple(want)}")
+    return _tensor(arr)
+
+
+def _has_head(state: Mapping[str, Any], *keys: str) -> bool:
+    """``state`` holds one of the head's ``keys``; a state without loads
+    with the head left as it was."""
+    if any(k in state for k in keys):
+        return True
+    logger.warning("state dict has no classifier head; head left random")
+    return False
+
+
 def vit_state_from_jax_params(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, torch.Tensor]:
     """flax param tree of the JAX ViT -> the port's (timm-named) state dict."""
     d = cfg.hidden_dim
@@ -121,32 +143,17 @@ def vit_params_from_torch_state(
       norm.{weight,bias}, head.{weight,bias}
     A state dict without the head loads with the head left as it was.
     """
-    d = cfg.hidden_dim
-    has_head = "head.weight" in state
-    if not has_head:
-        logger.warning("state dict has no classifier head; head left random")
-    shapes = vit_state_manifest(cfg, head=has_head)
-    if not cfg.patch_bias:
-        del shapes["patch_embed.proj.bias"]
-    if cfg.ln_pre:
-        shapes["norm_pre.weight"] = (d,)
-        shapes["norm_pre.bias"] = (d,)
-
     out: dict[str, torch.Tensor] = {}
-    for key, want in shapes.items():
-        if key not in state:
-            raise KeyError(f"missing weight {key!r}")
-        arr = _np(state[key])
+    for key, want in _vit_tower_manifest(cfg, head=_has_head(state, "head.weight")).items():
+        arr = _get(state, key)
         if key == "cls_token":
-            arr = arr.reshape(1, 1, d)
+            arr = arr.reshape(1, 1, cfg.hidden_dim)
         if key == "pos_embed" and arr.shape[1] != want[1]:
             raise ValueError(
                 f"pos_embed has {arr.shape[1]} tokens, model expects {want[1]} "
                 f"(interpolation not implemented)"
             )
-        if tuple(arr.shape) != want:
-            raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {want}")
-        out[key] = _tensor(arr)
+        out[key] = _at(key, arr, want)
     return out
 
 
@@ -155,18 +162,8 @@ def eva02_params_from_torch_state(state: Mapping[str, Any], cfg: EVA02Config) ->
     wd-eva02 tagger's) -> the port's state dict (f32 tensors), every key of
     :func:`eva02_state_manifest` at its shape. A state dict without the head
     loads with the head left as it was."""
-    has_head = "head.weight" in state
-    if not has_head:
-        logger.warning("state dict has no classifier head; head left random")
-    out: dict[str, torch.Tensor] = {}
-    for key, want in eva02_state_manifest(cfg, head=has_head).items():
-        if key not in state:
-            raise KeyError(f"missing weight {key!r}")
-        arr = _np(state[key])
-        if tuple(arr.shape) != tuple(want):
-            raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {tuple(want)}")
-        out[key] = _tensor(arr)
-    return out
+    manifest = eva02_state_manifest(cfg, head=_has_head(state, "head.weight"))
+    return {key: _at(key, _get(state, key), want) for key, want in manifest.items()}
 
 
 def clip_vit_params_from_torch_state(
@@ -194,10 +191,7 @@ def clip_vit_params_from_torch_state(
     prefix = "visual." if any(k.startswith("visual.") for k in state) else ""
 
     def get(key: str) -> np.ndarray:
-        full = prefix + key
-        if full not in state:
-            raise KeyError(f"missing weight {full!r}")
-        return _np(state[full]).astype(np.float32)
+        return _get(state, prefix + key).astype(np.float32)
 
     pos = get("positional_embedding")  # (T, D)
     want_tokens = cfg.num_patches + 1
@@ -310,38 +304,25 @@ def swin_params_from_torch_state(
     ignored: the port builds its own. A state dict without the head loads
     with the head left as it was.
     """
-
-    def get(key: str) -> np.ndarray:
-        if key not in state:
-            raise KeyError(f"missing weight {key!r}")
-        return _np(state[key])
-
-    has_head = any(k in state for k in ("head.fc.weight", "head.weight"))
-    if not has_head:
-        logger.warning("state dict has no classifier head; head left random")
+    has_head = _has_head(state, "head.fc.weight", "head.weight")
     out: dict[str, torch.Tensor] = {}
     for key, want in swin_state_manifest(cfg).items():
         if key.startswith("head.fc."):
             if not has_head:
                 continue
-            arr = get(key if key in state else key.replace("head.fc.", "head."))
+            arr = _get(state, key if key in state else key.replace("head.fc.", "head."))
         elif key.endswith(("attn.q_bias", "attn.v_bias")) and key not in state:
             pre = key.rsplit("attn.", 1)[0]
-            qkv_bias = get(pre + "attn.qkv.bias").reshape(3, -1)
+            qkv_bias = _get(state, pre + "attn.qkv.bias").reshape(3, -1)
             if np.any(qkv_bias[1] != 0):
                 raise ValueError(f"{pre}attn.qkv.bias: the k slice is not zero; SwinV2 has no k bias")
             arr = qkv_bias[0] if key.endswith("q_bias") else qkv_bias[2]
         else:
-            arr = get(key)
-        if tuple(arr.shape) != tuple(want):
-            raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {tuple(want)}")
-        out[key] = _tensor(arr)
+            arr = _get(state, key)
+        out[key] = _at(key, arr, want)
         if key.endswith("attn.q_bias"):
             k_key = key.replace("q_bias", "k_bias")
-            k_bias = get(k_key) if k_key in state else np.zeros(want, np.float32)
-            if tuple(k_bias.shape) != tuple(want):
-                raise ValueError(f"{k_key}: shape {tuple(k_bias.shape)} != expected {tuple(want)}")
-            out[k_key] = _tensor(k_bias)
+            out[k_key] = _at(k_key, _get(state, k_key) if k_key in state else np.zeros(want, np.float32), want)
     return out
 
 
@@ -554,16 +535,20 @@ def validate_state_against_manifest(
         raise StateDictMismatch(f"{name} does not match manifest — " + "; ".join(parts))
 
 
-def clip_encoder_state_manifest(cfg: ViTConfig, embed_dim: int) -> dict[str, tuple[int, ...]]:
-    """Keys -> shapes of the port's own ``index/embedder.ClipImageEncoder``
-    state dict: the headless timm-named ViT under ``vit.`` and ``proj``."""
-    m = vit_state_manifest(cfg, head=False)
+def _vit_tower_manifest(cfg: ViTConfig, *, head: bool) -> dict[str, tuple[int, ...]]:
+    """:func:`vit_state_manifest` for the config's patch bias and ``norm_pre``."""
+    m = vit_state_manifest(cfg, head=head)
     if not cfg.patch_bias:
         del m["patch_embed.proj.bias"]
     if cfg.ln_pre:
-        m["norm_pre.weight"] = (cfg.hidden_dim,)
-        m["norm_pre.bias"] = (cfg.hidden_dim,)
-    out = {f"vit.{k}": v for k, v in m.items()}
+        m["norm_pre.weight"] = m["norm_pre.bias"] = (cfg.hidden_dim,)
+    return m
+
+
+def clip_encoder_state_manifest(cfg: ViTConfig, embed_dim: int) -> dict[str, tuple[int, ...]]:
+    """Keys -> shapes of the port's own ``index/embedder.ClipImageEncoder``
+    state dict: the headless timm-named ViT under ``vit.`` and ``proj``."""
+    out = {f"vit.{k}": v for k, v in _vit_tower_manifest(cfg, head=False).items()}
     out["proj.weight"] = (embed_dim, cfg.hidden_dim)
     return out
 
@@ -599,6 +584,8 @@ def import_torch_checkpoint(
     recovered (``onnx_import.remap_folded_initializers``, corroborated by the
     graph's nodes), which must then validate strictly. A port checkpoint
     directory is validated against its own arch's manifest."""
+    from kobato_eyes_tpu_torch.models.archs import arch_of
+
     path = Path(path)
     if path.is_dir():
         return _checkpoint_dir_state(path, cfg)
@@ -626,20 +613,10 @@ def import_torch_checkpoint(
             validate_state_against_manifest(remapped, manifest, name=str(path))
             return remapped
 
-    if isinstance(cfg, SwinConfig):
-        if strict:
-            # a folded export renames the weight (onnx::MatMul_*), but its
-            # bias keeps its name and votes for the head's style
-            style = "fc" if "head.fc.weight" in state or "head.fc.bias" in state else "flat"
-            state = check(swin_state_manifest(cfg, head_style=style), state)
-        return swin_params_from_torch_state(state, cfg)
-    if isinstance(cfg, EVA02Config):
-        if strict:
-            state = check(eva02_state_manifest(cfg, head="head.weight" in state or "head.bias" in state), state)
-        return eva02_params_from_torch_state(state, cfg)
-    # ViT: dispatch on the naming family — CLIP visual tower (conv1 /
-    # transformer.resblocks) vs timm VisionTransformer (patch_embed / blocks)
-    if any(k.endswith("conv1.weight") or ".resblocks." in k for k in state):
+    arch = arch_of(cfg)
+    # the naming family: a CLIP visual tower (conv1 / transformer.resblocks),
+    # else the arch's timm names (patch_embed / blocks)
+    if arch.clip and any(k.endswith("conv1.weight") or ".resblocks." in k for k in state):
         if strict:
             prefix = "visual." if any(k.startswith("visual.") for k in state) else ""
             proj = state.get(prefix + "proj")
@@ -651,9 +628,8 @@ def import_torch_checkpoint(
             state = {**state, **visual}
         return clip_vit_params_from_torch_state(state, cfg)
     if strict:
-        has_head = "head.weight" in state or "head.bias" in state
-        state = check(vit_state_manifest(cfg, head=has_head), state)
-    return vit_params_from_torch_state(state, cfg)
+        state = check(arch.timm_manifest(cfg, state), state)
+    return arch.from_timm(state, cfg)
 
 
 def _checkpoint_dir_state(path: Path, cfg: ViTConfig | SwinConfig | EVA02Config) -> dict[str, torch.Tensor]:
@@ -661,19 +637,19 @@ def _checkpoint_dir_state(path: Path, cfg: ViTConfig | SwinConfig | EVA02Config)
     arch that fits the config, and that arch's key/shape manifest (a tagger
     checkpoint's state is already timm-named, a ``clip`` one the embedder's
     own)."""
+    from kobato_eyes_tpu_torch.models.archs import arch_of
     from kobato_eyes_tpu_torch.models.tagger import checkpoint_state
 
-    fits, kind = {SwinConfig: (("swinv2",), "SwinV2"), EVA02Config: (("eva02",), "EVA02")}.get(
-        type(cfg), (("vit", "clip"), "ViT")
-    )
+    arch = arch_of(cfg)
+    fits = (arch.name, "clip") if arch.clip else (arch.name,)
 
     def key_manifest(meta: dict[str, Any]) -> dict[str, tuple[int, ...]]:
-        arch = meta.get("arch")
-        if arch not in fits:
-            raise ValueError(f"{path} holds a {arch!r} checkpoint, not a {kind} one")
-        if arch == "clip":
+        held = meta.get("arch")
+        if held not in fits:
+            raise ValueError(f"{path} holds a {held!r} checkpoint, not a {arch.module.__name__} one")
+        if held == "clip":
             return clip_encoder_state_manifest(cfg, int(meta["embed_dim"]))
-        return {"swinv2": swin_state_manifest, "eva02": eva02_state_manifest}.get(arch, vit_state_manifest)(cfg)
+        return arch.state_manifest(cfg)
 
     state, _ = checkpoint_state(path, expect={"image_size": cfg.image_size}, key_manifest=key_manifest)
     return {k: v.float() for k, v in state.items()}

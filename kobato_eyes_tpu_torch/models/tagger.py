@@ -8,16 +8,15 @@ propagation) is the JAX package's, and ``signature_fields()`` is equal to
 the JAX tagger's for the same config, so a catalog tagged by one package is
 not re-tagged by the other.
 
+The archs are ``models/archs.py``'s: ViT and SwinV2, the JAX package's
+two, and EVA02, the PixAI tagger's published backbone, which it lacks.
 Weights are a state dict (timm names, see ``models/import_weights.py``), a
 checkpoint directory written by :func:`save_checkpoint` (``ket
 import-weights`` writes one) or a random init from a seeded
-``torch.Generator``. Both archs are ported: ViT (``models/vit.py``) and
-SwinV2 (``models/swin.py``, the WD14 family's real arch); the port adds
-EVA02 (``models/eva02.py``, the PixAI tagger's published backbone), which
-the JAX package does not have. The JAX package
-keeps its checkpoints with orbax, which imports JAX; the port's format is a
-directory of ``model.safetensors`` (the state dict) beside
-``manifest.json`` (what the weights are for and where they came from).
+``torch.Generator``. The JAX package keeps its checkpoints with orbax, which
+imports JAX; the port's format is a directory of ``model.safetensors`` (the
+state dict) beside ``manifest.json`` (what the weights are for and where
+they came from).
 
 On one CUDA device a batch's whole device work (normalisation, forward,
 probabilities, device selection) replays from a captured CUDA graph from its
@@ -57,8 +56,9 @@ from kobato_eyes_tpu_torch.models.base import (
     ThresholdMap,
     WD14_DEFAULT_THRESHOLDS,
 )
-from kobato_eyes_tpu_torch.models.eva02 import EVA02, EVA02Config, eva02_config, init_eva02_
-from kobato_eyes_tpu_torch.models.graph_dispatch import BatchGraphs, pack, unpack
+from kobato_eyes_tpu_torch.models.archs import ARCHS, arch_of
+from kobato_eyes_tpu_torch.models.eva02 import EVA02Config
+from kobato_eyes_tpu_torch.models.graph_dispatch import BatchGraphs
 from kobato_eyes_tpu_torch.models.labels import TagMeta, load_labels, synthetic_labels
 from kobato_eyes_tpu_torch.models.postprocess import (
     build_threshold_vector,
@@ -75,23 +75,11 @@ from kobato_eyes_tpu_torch.models.preprocess import (
     normalize_on_device,
     prepare_batch,
 )
-from kobato_eyes_tpu_torch.models.swin import SwinConfig, SwinV2, init_swin_, swin_config
-from kobato_eyes_tpu_torch.models.vit import ViT, ViTConfig, init_vit_, vit_config
+from kobato_eyes_tpu_torch.models.swin import SwinConfig
+from kobato_eyes_tpu_torch.models.vit import ViTConfig
 from kobato_eyes_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
-
-
-def fetch(tensors: Sequence[torch.Tensor]) -> list[np.ndarray]:
-    """Copy small result tensors to the host in one transfer (one sync).
-
-    Everything travels as float64 (``graph_dispatch.pack``), which holds
-    every f32 score and every index exactly, and comes back in its own dtype.
-    """
-    if not tensors:
-        return []
-    flat, layout = pack(tensors)
-    return unpack(flat.cpu().numpy(), layout)
 
 
 class TorchTagger:
@@ -126,12 +114,12 @@ class TorchTagger:
         fast_math: bool | None = None,
         device: str | torch.device | None = None,
     ) -> None:
-        """``fast_math``: the fast forward — the hand-written CUDA attention
-        kernel (``attn_impl="pallas"``: head-resident for ViT, window cosine
-        for SwinV2) plus tanh-gelu; ``ln_impl`` is left alone. ``None``
-        (default) turns it on when the device is ``cuda``; pass ``False`` for
-        the exact einsum/erf forward. Only applies to an explicitly passed
-        ``vit``/``swin`` config if it left those knobs at their defaults.
+        """``fast_math``: the fast forward, the arch's ``fast`` rewrite of its
+        config (``models/archs.py``): the hand-written CUDA attention kernel
+        (``attn_impl="pallas"``) plus tanh-gelu where the MLP has a GELU;
+        ``ln_impl`` is left alone. ``None`` (default) turns it on when the
+        device is ``cuda``; pass ``False`` for the exact einsum/erf forward. A
+        config passed in is rewritten only if it left those knobs at their defaults.
 
         ``params``: the port's state dict (timm names); else
         ``checkpoint_path``, a directory written by :func:`save_checkpoint`
@@ -149,26 +137,21 @@ class TorchTagger:
         logit scale and the CPB MLP's weights are rounded too, as the JAX
         tagger rounds its whole parameter tree).
         """
-        explicit_cfg = swin is not None or vit is not None or eva02 is not None
-        if not explicit_cfg and params is None and checkpoint_path is not None:
+        cfg = eva02 or swin or vit  # a config passed in names the arch
+        if cfg is None and params is None and checkpoint_path is not None:
             meta = read_manifest(checkpoint_path)
             arch = arch or meta.get("arch")
             preset = preset or meta.get("preset")
             image_size = image_size or meta.get("image_size")
-        arch = arch or "vit"
         image_size = image_size or 448
-        if eva02 is not None:
-            arch = "eva02"
-        elif swin is not None:
-            arch = "swinv2"
-        elif vit is not None:
-            arch = "vit"
-        if arch not in ("vit", "swinv2", "eva02"):
-            raise ValueError(f"unknown arch {arch!r} (vit | swinv2 | eva02)")
-        if arch == "eva02" and mesh is not None:
-            raise ValueError("an EVA02 tagger runs on one device: the mesh forward splits a ViT or replicates a SwinV2")
+        entry = arch_of(cfg) if cfg is not None else ARCHS.get(arch or "vit")
+        if entry is None:
+            raise ValueError(f"unknown arch {arch!r} ({' | '.join(ARCHS)})")
+        if mesh is not None and not entry.on_mesh:
+            raise ValueError(f"an {entry.module.__name__} tagger runs on one device: "
+                             "the mesh forward splits a ViT or replicates a SwinV2")
         if preset is None:
-            preset = "large" if arch == "eva02" else "base"
+            preset = entry.default_preset
         # with a mesh, results gather on its first entry
         self.device = mesh.local_devices[0, 0] if mesh is not None else resolve_device(device)
 
@@ -198,7 +181,8 @@ class TorchTagger:
         self._tag_meta = {m.name: m for m in self.labels}
         self._name_to_idx = {m.name: i for i, m in enumerate(self.labels)}
 
-        self.arch = arch
+        self.arch = entry.name
+        self._arch = entry
         if fast_math is None:
             fast_math = self.device.type == "cuda"
             if fast_math:
@@ -209,17 +193,9 @@ class TorchTagger:
                     "fast_math auto-enabled on CUDA (attention kernel + "
                     "tanh-gelu); pass fast_math=False for the exact forward"
                 )
-        if arch == "swinv2":
-            self.cfg = swin or swin_config(preset, image_size=image_size, num_classes=len(self.labels))
-        elif arch == "eva02":
-            self.cfg = eva02 or eva02_config(preset, image_size=image_size, num_classes=len(self.labels))
-        else:
-            self.cfg = vit or vit_config(preset, image_size=image_size, num_classes=len(self.labels))
-        if fast_math and self.cfg.attn_impl == "einsum":
-            if arch == "eva02":  # SwiGLU: no GELU to swap
-                self.cfg = dataclasses.replace(self.cfg, attn_impl="pallas")
-            elif self.cfg.act == "gelu":
-                self.cfg = dataclasses.replace(self.cfg, attn_impl="pallas", act="gelu_tanh")
+        self.cfg = cfg or entry.preset_config(preset, image_size=image_size, num_classes=len(self.labels))
+        if fast_math:
+            self.cfg = entry.fast(self.cfg)
         if self.cfg.num_classes != len(self.labels):
             raise ValueError(
                 f"model head ({self.cfg.num_classes}) != label count ({len(self.labels)})"
@@ -261,29 +237,22 @@ class TorchTagger:
         self._thr_copied: np.ndarray | None = None
         self._mean_std = mean_std_on_device(self.spec, self.device) if self.spec.mode == "pixai" else None
 
-        module, init = {"swinv2": (SwinV2, init_swin_), "eva02": (EVA02, init_eva02_), "vit": (ViT, init_vit_)}[arch]
-        model = module(self.cfg)
+        model = entry.module(self.cfg)
         self._checkpoint_path = Path(checkpoint_path) if checkpoint_path else None
         if params is not None:
             model.load_state_dict(params, strict=True)
         elif self._checkpoint_path is not None:
-            from kobato_eyes_tpu_torch.models.import_weights import (
-                eva02_state_manifest,
-                swin_state_manifest,
-                vit_state_manifest,
-            )
-
             # a config passed in names no preset; one built from the preset does
-            expect = {"arch": arch, "image_size": self.cfg.image_size, **({} if explicit_cfg else {"preset": preset})}
-            keys = {"swinv2": swin_state_manifest, "eva02": eva02_state_manifest}.get(arch, vit_state_manifest)
-            state, _ = checkpoint_state(self._checkpoint_path, expect=expect, key_manifest=lambda _: keys(self.cfg))
+            expect = {"arch": entry.name, "image_size": self.cfg.image_size, **({} if cfg else {"preset": preset})}
+            keys = entry.state_manifest(self.cfg)
+            state, _ = checkpoint_state(self._checkpoint_path, expect=expect, key_manifest=lambda _: keys)
             model.load_state_dict(state, strict=True)
         else:
             logger.info(
                 "tagger %s: random-init weights (%d labels, %s/%s preset)",
-                self.mode, len(self.labels), arch, preset,
+                self.mode, len(self.labels), entry.name, preset,
             )
-            init(model, torch.Generator().manual_seed(seed))
+            entry.init(model, torch.Generator().manual_seed(seed))
         if bf16_params:
             self.cfg = dataclasses.replace(self.cfg, param_dtype=torch.bfloat16)
             with torch.no_grad():
@@ -313,21 +282,9 @@ class TorchTagger:
         label_digest = hashlib.sha256(
             "\n".join(f"{m.name}:{int(m.category)}" for m in self.labels).encode()
         ).hexdigest()[:16]
-        if self.arch == "swinv2":
-            arch = (
-                f"swinv2-e{self.cfg.embed_dim}-d{'.'.join(map(str, self.cfg.depths))}"
-                f"-w{self.cfg.window_size}-{self.cfg.image_size}"
-            )
-        elif self.arch == "eva02":
-            arch = (
-                f"eva02-d{self.cfg.depth}-h{self.cfg.hidden_dim}-p{self.cfg.patch_size}"
-                f"-m{self.cfg.mlp_hidden}-{self.cfg.image_size}"
-            )
-        else:
-            arch = f"vit-d{self.cfg.depth}-h{self.cfg.hidden_dim}-p{self.cfg.patch_size}-{self.cfg.image_size}"
         return {
             "name": self.mode,
-            "arch": arch,
+            "arch": self._arch.signature(self.cfg),
             "labels": label_digest,
             "ckpt": str(self._checkpoint_path or "random"),
             "thr": json.dumps(self.thresholds, sort_keys=True),
@@ -366,24 +323,25 @@ class TorchTagger:
         """(B, S, S, 3) uint8 -> (B, C) f32 probabilities on the device,
         queued without waiting for the device. A tensor already on the
         device (the fused tag+embed lane's one upload) is used as it is."""
+        return self._probs(self._upload(batch_u8))
+
+    def _upload(self, batch: np.ndarray | torch.Tensor) -> torch.Tensor:
+        """The batch on the device; with a mesh, on the host (the mesh
+        forward uploads its shards)."""
+        if not isinstance(batch, torch.Tensor):
+            batch = torch.from_numpy(np.ascontiguousarray(batch))
         if self._mesh_forward is not None:
-            return self._forward_probs_mesh(batch_u8)
+            return batch
         with span("tagger.upload"):
-            if isinstance(batch_u8, torch.Tensor):
-                batch = batch_u8.to(self.device)
-            else:
-                batch = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
-        return self._probs(batch)
+            return batch.to(self.device)
 
     def _probs(self, batch: torch.Tensor) -> torch.Tensor:
-        """Normalisation, forward and probabilities of a batch on the device."""
-        with torch.inference_mode():
-            return probs_from_logits(self._model(normalize_on_device(batch, self.spec, self._mean_std)))
-
-    def _forward_probs_mesh(self, batch_u8: np.ndarray | torch.Tensor) -> torch.Tensor:
+        """Normalisation, forward and probabilities of an uploaded batch."""
+        if self._mesh_forward is None:
+            with torch.inference_mode():
+                return probs_from_logits(self._model(normalize_on_device(batch, self.spec, self._mean_std)))
         from kobato_eyes_tpu_torch.parallel.mesh import shard_batch
 
-        batch = batch_u8 if isinstance(batch_u8, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(batch_u8))
         n = batch.shape[0]
         pad = -n % self._mesh.shape["data"]
         if pad:
@@ -468,8 +426,7 @@ class TorchTagger:
             dtype = batch.dtype if isinstance(batch, torch.Tensor) else torch.from_numpy(batch[:0]).dtype
             pending = self._graphs.dispatch(
                 (tuple(batch.shape), dtype, self._select_key(limits)), batch,
-                eager=lambda: self._select_device(self.forward_probs(batch), thr, limits),
-                work=lambda x: self._select_device(self._probs(x), thr, limits),
+                upload=self._upload, work=lambda x: self._select_device(self._probs(x), thr, limits),
             )
             return (pending, limits, thresholds)
 
@@ -489,18 +446,9 @@ class TorchTagger:
         thresholds: ThresholdMap | None = None,
         max_tags: MaxTagsMap | None = None,
     ) -> list[list[TagResult]]:
-        """Drain-style inference: dispatch every batch, fetch once."""
-        thr = self._thr_dev(self._thr_vec(thresholds))
-        limits = resolve_limits(self.max_tags, max_tags)
-        pending = [
-            self._select_device(self.forward_probs(b), thr, limits) for b in batches
-        ]
-        flat = fetch([t for p in pending for t in p])
-        fetched = []
-        for p in pending:
-            fetched.append(flat[: len(p)])
-            flat = flat[len(p):]
-        return [self._select_host(f, limits, thresholds) for f in fetched]
+        """Drain-style inference: dispatch every batch, then complete each."""
+        handles = [self.dispatch_batch_prepared(b, thresholds=thresholds, max_tags=max_tags) for b in batches]
+        return [self.complete_batch_prepared(h) for h in handles]
 
     def infer_batch(
         self,

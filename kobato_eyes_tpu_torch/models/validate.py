@@ -12,8 +12,8 @@ cannot:
 3. **Tags**: do any tags flip between the two forwards at the production
    thresholds?
 
-Lanes: ``swinv2`` and ``vit`` (WD14 class) and ``pixai`` (ViT backbone,
-preprocess.json discovery, ips propagation probe); the ``clip`` lane is
+Lanes: each arch of ``models/archs.py`` (WD14 class) and ``pixai`` (a ViT
+backbone, preprocess.json discovery, ips propagation probe); the ``clip`` lane is
 ``index/validate.py``. The file is a ``.pt``/``.pth``, ``.safetensors`` or
 ``.onnx`` state dict, or the port's checkpoint directory (``ket
 import-weights``). ``cli.cmd_validate_checkpoint`` is the thin shell.
@@ -107,18 +107,19 @@ def validate_checkpoint(
             "kobato_eyes_tpu_torch.index.validate.validate_clip_checkpoint "
             "(ket validate-checkpoint --arch clip dispatches there)"
         )
-    if arch not in ("swinv2", "vit", "pixai"):
-        raise ValueError(f"unknown arch {arch!r} (swinv2 | vit | pixai)")
 
+    from kobato_eyes_tpu_torch.models.archs import ARCHS
     from kobato_eyes_tpu_torch.models.import_weights import import_torch_checkpoint
     from kobato_eyes_tpu_torch.models.labels import load_labels, synthetic_labels
     from kobato_eyes_tpu_torch.models.tagger import PixaiTagger, WD14Tagger
 
+    pixai = arch == "pixai"
+    backbone = "vit" if pixai else arch
+    if backbone not in ARCHS:
+        raise ValueError(f"unknown arch {arch!r} ({' | '.join([*ARCHS, 'pixai'])})")
     path = Path(path)
     report: dict[str, Any] = {"path": str(path), "arch": arch, "preset": preset}
 
-    pixai = arch == "pixai"
-    backbone = "vit" if pixai else arch
     if labels_path is not None:
         labels = load_labels(labels_path)
     elif pixai:
@@ -131,14 +132,7 @@ def validate_checkpoint(
         report["ips_links"] = sum(1 for m in labels if m.ips)
 
     # --- 1. import (strict manifests) --------------------------------------
-    if backbone == "swinv2":
-        from kobato_eyes_tpu_torch.models.swin import swin_config
-
-        cfg = swin_config(preset, image_size=image_size, num_classes=n_classes)
-    else:
-        from kobato_eyes_tpu_torch.models.vit import vit_config
-
-        cfg = vit_config(preset, image_size=image_size, num_classes=n_classes)
+    cfg = ARCHS[backbone].preset_config(preset, image_size=image_size, num_classes=n_classes)
     params = import_torch_checkpoint(path, cfg)  # raises with keys named
     # a checkpoint directory (``ket import-weights``) is held to its manifest
     report["import"] = "checkpoint" if path.is_dir() else "strict-manifest-ok"
@@ -162,7 +156,7 @@ def validate_checkpoint(
     else:
         exact = WD14Tagger(fast_math=False, **common)
         fast = WD14Tagger(fast_math=True, **common)
-    report["fast_path"] = {"attn_impl": fast.cfg.attn_impl, "act": fast.cfg.act}
+    report["fast_path"] = {"attn_impl": fast.cfg.attn_impl, "act": getattr(fast.cfg, "act", None)}  # EVA02: SwiGLU
 
     # --- 2. exact-vs-fast forward parity -----------------------------------
     images = _synthetic_batch(image_size, n_images)
@@ -215,7 +209,7 @@ def _probe_ips_propagation(tagger) -> bool:
     character's score (the tagger's own selection, device then host)."""
     from kobato_eyes_tpu_torch.models.base import TagCategory
     from kobato_eyes_tpu_torch.models.postprocess import resolve_limits
-    from kobato_eyes_tpu_torch.models.tagger import fetch
+    from kobato_eyes_tpu_torch.models.graph_dispatch import fetch
 
     char = next(
         (

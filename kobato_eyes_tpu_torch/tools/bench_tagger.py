@@ -11,13 +11,13 @@ Usage:
     python -m kobato_eyes_tpu_torch.tools.bench_tagger --images DIR --tagger wd14
     python -m kobato_eyes_tpu_torch.tools.bench_tagger --device cpu --preset tiny ...
 
-``roofline.flops`` is the analytic ``vit_forward_flops`` (a SwinV2 tagger's
-is the counted cost), held against the card's published peak (``mfu``; null
-on the CPU). ``roofline.compiled_flops_scan_body`` keeps the JAX tool's key
-for the FLOPs that ``utils/profiling.compiled_cost`` counts over the
-operators one forward dispatches: the hand-written kernels launched through
-``ops/build.py`` are no torch operators, so on the card it leaves out the
-attention's products (on the CPU the plain attention is counted).
+``roofline.flops`` is the analytic ``vit_forward_flops``, held against the
+card's published peak (``mfu``; null on the CPU).
+``roofline.compiled_flops_scan_body`` keeps the JAX tool's key for the FLOPs
+that ``utils/profiling.compiled_cost`` counts over the operators one forward
+dispatches: the hand-written kernels launched through ``ops/build.py`` are
+no torch operators, so on the card it leaves out the attention's products
+(on the CPU the plain attention is counted).
 """
 
 from __future__ import annotations
@@ -69,7 +69,8 @@ def main(argv: list[str] | None = None) -> int:
 
     from kobato_eyes_tpu_torch.bench import synchronize
     from kobato_eyes_tpu_torch.models.labels import synthetic_labels
-    from kobato_eyes_tpu_torch.models.tagger import PixaiTagger, WD14Tagger, fetch
+    from kobato_eyes_tpu_torch.models.graph_dispatch import fetch
+    from kobato_eyes_tpu_torch.models.tagger import PixaiTagger, WD14Tagger
     from kobato_eyes_tpu_torch.models.vit import vit_config
 
     if args.tagger == "pixai" and args.labels == 8192:
@@ -128,9 +129,11 @@ def main(argv: list[str] | None = None) -> int:
         post_times.append((t2 - t1) * 1000)
 
     # -- throughput (pipelined): dispatch every batch, then drain ----------
-    # the forwards queue on the stream back to back; one copy at the end
+    # each batch replays its shape's CUDA graph, as in ``ket index``; the graph
+    # is captured before the timer starts, as the JAX tool compiles first
     from kobato_eyes_tpu_torch.utils.profiling import device_trace
 
+    tagger.infer_batches_prepared(batches[:2])
     timed = batches[args.warmup_batches :] or batches
     with device_trace(args.profile):
         t0 = time.perf_counter()
@@ -142,24 +145,16 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- roofline: analytic forward FLOPs against the measured device time
     # and the card's published peak (MFU) ----------------------------------
-    from kobato_eyes_tpu_torch.models.vit import ViTConfig, vit_forward_flops
+    from kobato_eyes_tpu_torch.models.vit import vit_forward_flops
     from kobato_eyes_tpu_torch.utils.profiling import compiled_cost, roofline_summary
 
     cost = compiled_cost(tagger.forward_probs, batches[0])
     roofline = None
     if infer_times:
-        flops = (
-            vit_forward_flops(tagger.cfg, batches[0].shape[0])
-            if isinstance(tagger.cfg, ViTConfig)
-            else cost.get("flops", 0.0)
-        )
-        if flops:
-            roofline = roofline_summary(flops, np.median(infer_times) / 1000.0, device=device)
-            roofline["compiled_flops_scan_body"] = cost.get("flops")
-            roofline = {
-                k: (round(v, 4) if isinstance(v, float) else v)
-                for k, v in roofline.items()
-            }
+        flops = vit_forward_flops(tagger.cfg, batches[0].shape[0])
+        roofline = roofline_summary(flops, np.median(infer_times) / 1000.0, device=device)
+        roofline["compiled_flops_scan_body"] = cost.get("flops")
+        roofline = {k: (round(v, 4) if isinstance(v, float) else v) for k, v in roofline.items()}
 
     print(json.dumps({
         "metric": f"{args.tagger}_tagging_images_per_sec",

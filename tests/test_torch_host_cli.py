@@ -16,6 +16,7 @@ the same tags and scores, bit for bit, as the tagger holding those weights.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -35,10 +36,10 @@ from kobato_eyes_tpu_torch import cli as tcli
 from kobato_eyes_tpu_torch.core.config.schema import PipelineSettings, Settings, TaggerSettings
 from kobato_eyes_tpu_torch.core.config.service import save_settings
 from kobato_eyes_tpu_torch.db.connection import reset_bootstrap_cache as treset
+from kobato_eyes_tpu_torch.models import archs as tarchs
 from kobato_eyes_tpu_torch.models import import_weights as timport
 from kobato_eyes_tpu_torch.models import onnx_import as tonnx
 from kobato_eyes_tpu_torch.models import tagger as ttagger
-from kobato_eyes_tpu_torch.models import vit as tvit
 from kobato_eyes_tpu_torch.utils.paths import get_app_paths
 from tests.test_torch_maintenance import catalog_rows, write_images
 
@@ -273,10 +274,9 @@ N_LABELS = 24
 def tiny_base(monkeypatch):
     """The ``base`` preset cut to the tiny one at 64 px, for the CLI's own
     tagger and importer (the CPU run stays short)."""
-    real = tvit.vit_config
-    cut = lambda preset, **kw: real("tiny", **{**kw, "image_size": 64})  # noqa: E731
-    monkeypatch.setattr(tvit, "vit_config", cut)
-    monkeypatch.setattr(ttagger, "vit_config", cut)
+    vit = tarchs.ARCHS["vit"]
+    cut = lambda preset, **kw: vit.preset_config("tiny", **{**kw, "image_size": 64})  # noqa: E731
+    monkeypatch.setitem(tarchs.ARCHS, "vit", dataclasses.replace(vit, preset_config=cut))
 
 
 def test_import_weights_matches_the_jax_importer(tmp_path, capsys, tiny_base):

@@ -97,6 +97,7 @@ REQUIRED_MODULES = [
     "kobato_eyes_tpu_torch.tools.coverage_gate",
     "kobato_eyes_tpu_torch.models.eva02",
     "kobato_eyes_tpu_torch.ops.rope",
+    "kobato_eyes_tpu_torch.models.archs",
 ]
 
 COPIED = [

@@ -8,6 +8,8 @@ results.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from kobato_eyes_tpu_torch.core.config.service import save_settings
 from kobato_eyes_tpu_torch.core.pipeline import run_index_once as trun
 from kobato_eyes_tpu_torch.db.connection import bootstrap as tbootstrap
 from kobato_eyes_tpu_torch.db.connection import reset_bootstrap_cache as treset
+from kobato_eyes_tpu_torch.models import archs as tarchs
 from kobato_eyes_tpu_torch.models import import_weights as timport
 from kobato_eyes_tpu_torch.models import labels as tlabels
 from kobato_eyes_tpu_torch.models import swin as tswin
@@ -181,10 +184,9 @@ def test_sql_search_results_equal(indexed, capsys):
 def test_port_cli_index_and_search_on_cpu(library, tmp_path, monkeypatch, capsys):
     """The port's CLI end to end with --device cpu (the model cut to the tiny
     preset at 64 px, so the CPU run stays short)."""
-    real = tvit.vit_config
-    monkeypatch.setattr(
-        ttagger, "vit_config", lambda preset, **kw: real("tiny", **{**kw, "image_size": 64})
-    )
+    vit = tarchs.ARCHS["vit"]
+    cut = lambda preset, **kw: vit.preset_config("tiny", **{**kw, "image_size": 64})  # noqa: E731
+    monkeypatch.setitem(tarchs.ARCHS, "vit", dataclasses.replace(vit, preset_config=cut))
     labels = tmp_path / "selected_tags.csv"
     labels.write_text(
         "tag_id,name,category,count\n"

@@ -106,11 +106,14 @@ def test_tagger_results_equal(kind, fast_math):
     assert sum(len(r.tags) for r in want) > 10
     for g, w in zip(_scores(got), _scores(want)):
         np.testing.assert_allclose(g, w, atol=1e-4)
-    # the pipelined and drain-style forms give the same results
+    # the pipelined and drain-style forms give the same results, the drain
+    # through the batch graphs' dispatch (eager on the CPU)
     assert _plain(t.complete_batch_prepared(t.dispatch_batch_prepared(batch))) == _plain(want)
+    dispatched = t.eager_dispatches + t.graph_replays
     assert [_plain(r) for r in t.infer_batches_prepared([batch, batch[:2]])] == [
         _plain(want), _plain(want[:2])
     ]
+    assert t.eager_dispatches + t.graph_replays == dispatched + 2
 
 
 def test_signature_fields_equal():

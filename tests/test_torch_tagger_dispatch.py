@@ -22,7 +22,7 @@ import torch
 from kobato_eyes_tpu_torch.models import graph_dispatch as gd
 from kobato_eyes_tpu_torch.models.labels import synthetic_labels
 from kobato_eyes_tpu_torch.models.preprocess import PreprocessSpec, mean_std_on_device, normalize_on_device
-from kobato_eyes_tpu_torch.models.tagger import PixaiTagger, WD14Tagger, fetch
+from kobato_eyes_tpu_torch.models.tagger import PixaiTagger, WD14Tagger
 from kobato_eyes_tpu_torch.models.vit import vit_config
 
 torch.set_num_threads(1)
@@ -43,24 +43,28 @@ def _batch(n: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, size=(n, 32, 32, 3), dtype=np.uint8)
 
 
+@pytest.mark.parametrize("carry", ["pack", "fetch"])
 @pytest.mark.parametrize("batch", [1, 5, 32])
-def test_pack_unpack_round_trip_is_exact(batch):
+def test_pack_unpack_round_trip_is_exact(batch, carry):
+    """``pack`` then ``unpack``, or ``fetch`` (the two in one call, through
+    the host), gives back every array bit for bit in its dtype and shape."""
     rng = np.random.default_rng(batch)
     scores = rng.random((batch, 128), dtype=np.float32)
     scores[:, 100:] = -np.inf
     scores[0, 0] = np.float32(0.35)  # a threshold's own f32 value
     idx = rng.integers(0, 2**53, size=(batch, 128), dtype=np.int64)
     hits = rng.integers(0, 9083, size=(batch,), dtype=np.int32)
-    flat, layout = gd.pack([torch.from_numpy(a) for a in (scores, idx, hits)])
-    assert flat.dtype == torch.float64 and flat.numel() == scores.size + idx.size + hits.size
-    got = gd.unpack(flat.numpy(), layout)
+    tensors = [torch.from_numpy(a) for a in (scores, idx, hits)]
+    if carry == "fetch":
+        got = gd.fetch(tensors)
+    else:
+        flat, layout = gd.pack(tensors)
+        assert flat.dtype == torch.float64 and flat.numel() == scores.size + idx.size + hits.size
+        got = gd.unpack(flat.numpy(), layout)
+        flat.fill_(0)  # the arrays are copies: the slot may be written again
     for want, have in zip((scores, idx, hits), got):
         assert have.dtype == want.dtype and have.shape == want.shape
         np.testing.assert_array_equal(have, want)
-    flat.fill_(0)  # the arrays are copies: the slot may be written again
-    assert got[2].tolist() == hits.tolist()
-    assert [a.tolist() for a in fetch([torch.from_numpy(scores), torch.from_numpy(hits)])] == [
-        scores.tolist(), hits.tolist()]
 
 
 @pytest.mark.parametrize("cls", [WD14Tagger, PixaiTagger], ids=["wd14", "pixai"])
@@ -132,7 +136,9 @@ def test_graph_cache_is_bounded_least_recently_used_dropped():
     ran = []
 
     def dispatch(key):
-        return graphs.dispatch(key, None, eager=lambda: (ran.append(key) or torch.zeros(1),), work=None).wait()
+        return graphs.dispatch(
+            key, None, upload=lambda batch: batch, work=lambda _: (ran.append(key) or torch.zeros(1),)
+        ).wait()
 
     for key in range(gd.MAX_GRAPHS):
         dispatch(key)
@@ -147,7 +153,7 @@ def test_each_thread_runs_a_key_eager_before_it_may_capture():
     """The thread that captures must have run the key eager (its cuBLAS
     handle and the like are made there, never inside a capture)."""
     graphs = gd.BatchGraphs(CPU, on_mesh=False)
-    run = lambda: graphs.dispatch("k", None, eager=lambda: (torch.ones(2),), work=None).wait()  # noqa: E731
+    run = lambda: graphs.dispatch("k", None, upload=lambda b: b, work=lambda _: (torch.ones(2),)).wait()  # noqa: E731
     run()
     other = threading.Thread(target=run)
     other.start()
