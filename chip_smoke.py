@@ -863,10 +863,13 @@ def layernorm_phase() -> dict:
     """The LayerNorm kernel (``ops/layernorm.py``) on the card: torch's CUDA
     ``mean`` is the sum times fl(1/C); the kernel bit-equal to its plain
     version at every LayerNorm shape of the three tagging cells at batch 32
-    (f32 forms too), on rows 2 and 8 bytes off alignment and 1552 / 1540
-    bytes apart, with bf16 parameters; each shape timed through a CUDA graph,
-    cold over rotating inputs, beside its byte bound and the modules'
-    op-by-op chain; the share of bf16 outputs a step apart from the chain;
+    (f32 forms too; EVA02's sub-LayerNorm read in place and written at the
+    SwiGLU's pitch over memory that last held NaN, as the main path runs
+    it), on rows 2 and 8 bytes off alignment and 1552 / 1540
+    bytes apart, with bf16 parameters; each shape timed through a CUDA graph
+    as the main path lays it out, cold over rotating inputs, beside its byte
+    bound (the columns read and the pitch written) and the modules' op-by-op
+    chain; the share of bf16 outputs a step apart from the chain;
     one forward of ViT-B/448, SwinV2-B/448 and EVA02-L/448 launching it 25,
     53 and 73 times, and a ViT forward under autograd none. Returns the
     kernels line's entry."""
@@ -880,15 +883,17 @@ def layernorm_phase() -> dict:
 
     dev = torch.device("cuda")
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    # shapes the main path reads in place and writes at a wider pitch
+    ln_pitch = {"eva02.sub_norm": eva02.swiglu_pitch(2730)}
     x = torch.tensor([[7.0, 0.0, 0.0]], device=dev)
     mean = float(x.mean(dim=-1))
     check(mean == float(np.float32(7) * (np.float32(1) / np.float32(3))),
           f"torch's CUDA mean of (7, 0, 0) is {mean!r}, not 7 * fl(1/3)")
     print(f"layernorm: torch's CUDA mean of (7, 0, 0) = {mean!r} = 7 * fl(1/3) (7 / 3 rounds to 2.3333332538604736)")
 
-    def inputs(rows, c, x_dt, out_dt, post, seed):
+    def inputs(rows, c, x_dt, out_dt, post, seed, pitch=None):
         g = torch.Generator(device=dev).manual_seed(seed)
-        xs = (torch.randn(rows, c, generator=g, device=dev) * 3 + 0.5).to(x_dt)
+        xs = (torch.randn(rows, pitch or c, generator=g, device=dev) * 3 + 0.5).to(x_dt)[:, :c]
         sc = torch.randn(rows, c, generator=g, device=dev).to(out_dt) if post else None
         w = torch.rand(c, generator=g, device=dev) * 1.5 + 0.5
         return xs, sc, w, torch.randn(c, generator=g, device=dev)
@@ -913,6 +918,7 @@ def layernorm_phase() -> dict:
     cases = [(n, r, c, dt[a], dt[o], p) for n, r, c, a, o, p, _ in LN_SHAPES]
     cases += [("f32.norm", 4096, 768, torch.float32, torch.float32, False),
               ("f32.sub_norm", 4096, 2730, torch.float32, torch.float32, False),
+              ("contiguous.sub_norm", 4096, 2730, torch.bfloat16, torch.bfloat16, False),
               ("f32.post0", 4096, 128, torch.float32, torch.float32, True),
               ("f32.post3", 4096, 1024, torch.float32, torch.float32, True),
               ("odd.norm", 4099, 1023, torch.bfloat16, torch.bfloat16, False),
@@ -921,11 +927,15 @@ def layernorm_phase() -> dict:
               ("wide.post", 1031, 4095, torch.bfloat16, torch.bfloat16, True)]
     equal = 0
     for i, (name, rows, c, x_dt, out_dt, post) in enumerate(cases):
-        xs, sc, w, b = inputs(rows, c, x_dt, out_dt, post, 100 + i)
+        pitch = ln_pitch.get(name)
+        xs, sc, w, b = inputs(rows, c, x_dt, out_dt, post, 100 + i, pitch)
         for params in (torch.float32, torch.bfloat16):
             wp, bp = w.to(params), b.to(params)
-            got = lnk.layernorm(xs, wp, bp, eps=1e-5, dtype=out_dt, shortcut=sc)
-            want = lnk.layernorm_plain(xs, wp, bp, eps=1e-5, dtype=out_dt, shortcut=sc)
+            if pitch is not None:  # the allocator hands the output the block that held NaN
+                nan = torch.full((rows, pitch), float("nan"), dtype=out_dt, device=dev)
+                del nan
+            got = lnk.layernorm(xs, wp, bp, eps=1e-5, dtype=out_dt, shortcut=sc, out_pitch=pitch)
+            want = lnk.layernorm_plain(xs, wp, bp, eps=1e-5, dtype=out_dt, shortcut=sc, out_pitch=pitch)
             torch.cuda.synchronize()
             check(bool(torch.equal(bits(got), bits(want))),
                   f"layernorm {name} params {params}: kernel differs from its plain version "
@@ -946,39 +956,51 @@ def layernorm_phase() -> dict:
                   f"layernorm {offset} bytes off, pitch {pitch}, post {post}, body {body}: kernel differs")
             equal += 1
     print(f"layernorm: kernel bit-equal to its plain version in {equal} cases: every LayerNorm shape of the "
-          f"tagging cells at batch 32 (f32 and bf16 parameters), f32 forms, misaligned and strided rows")
+          f"tagging cells at batch 32 (f32 and bf16 parameters; "
+          + ", ".join(f"{n} read and written at pitch {p} over NaN" for n, p in ln_pitch.items())
+          + "), f32 forms, misaligned and strided rows")
 
     regs = ptxas_registers("layernorm.cu")
     if regs:
         print(f"layernorm: {len(regs)} instances, {min(regs.values())}-{max(regs.values())} registers; the cells' "
               + ", ".join(f"{n}: {v}" for n, v in sorted(regs.items())
-                          if re.search(r"I13__nv_bfloat16S1_Li8ELi(16ELi1|32ELi(1|2|4|12))E|If13__nv_bfloat16Li4ELi32ELi8E", n)))
+                          if re.search(r"I13__nv_bfloat16S1_Li8ELi(16ELi1|32ELi(1|2|4|12))E|If13__nv_bfloat16Li4ELi32ELi8E"
+                                       r"|I13__nv_bfloat16S1_Li2ELi128ELi12E", n)))
 
     # Times through CUDA graphs, cold: 24 calls walk over copies of the inputs
     # that together exceed the 50 MB L2 several times, as the byte bound assumes.
     per_shape = {}
     for i, (name, rows, c, a, o, post, count) in enumerate(LN_SHAPES):
         x_dt, out_dt = dt[a], dt[o]
-        xs, sc, w, b = inputs(rows, c, x_dt, out_dt, post, 200 + i)
-        moved = rows * c * (xs.element_size() + torch.empty((), dtype=out_dt).element_size() * (2 if post else 1))
+        pitch = ln_pitch.get(name)
+        xs, sc, w, b = inputs(rows, c, x_dt, out_dt, post, 200 + i, pitch)
+        out_size = torch.empty((), dtype=out_dt).element_size()
+        moved = rows * (c * xs.element_size() + (pitch or c) * out_size + (c * out_size if post else 0))
         copies = min(24, -(-400_000_000 // moved))
-        sets = [(xs, sc)] + [(xs.clone(), None if sc is None else sc.clone()) for _ in range(copies - 1)]
+
+        def clone(u):  # with u's strides (a slice's clone would be contiguous)
+            return torch.empty_strided(u.shape, u.stride(), dtype=u.dtype, device=u.device).copy_(u)
+
+        sets = [(xs, sc)] + [(clone(xs), None if sc is None else sc.clone()) for _ in range(copies - 1)]
 
         def calls(fn, n=24):
             return [lambda p=p: fn(*p) for p in (sets[j % len(sets)] for j in range(n))]
 
-        ms = cuda_graph_ms(calls(lambda u, s: lnk.layernorm(u, w, b, eps=1e-5, dtype=out_dt, shortcut=s)))
+        ms = cuda_graph_ms(calls(lambda u, s: lnk.layernorm(u, w, b, eps=1e-5, dtype=out_dt, shortcut=s,
+                                                            out_pitch=pitch)))
         lnk.takes_kernel = lambda *args: False
         try:
             chains = [chain(u, s, w, b, out_dt) for u, s in sets]
             chain_ms = cuda_graph_ms([chains[j % len(chains)] for j in range(24)])
-            g_out, c_out = lnk.layernorm(xs, w, b, eps=1e-5, dtype=out_dt, shortcut=sc), chains[0]()
+            g_out = lnk.layernorm(xs, w, b, eps=1e-5, dtype=out_dt, shortcut=sc, out_pitch=pitch)[:, :c]
+            c_out = chains[0]()
         finally:
             lnk.takes_kernel = takes
         apart = float((g_out != c_out).float().mean())
         bound = moved / HBM_BYTES_PER_S * 1e3
         per_shape[name] = (ms, chain_ms, bound, count)
-        print(f"layernorm {name} ({rows}, {c}) {a} -> {o}{' + shortcut' if post else ''}, body "
+        print(f"layernorm {name} ({rows}, {c}{f' at pitch {pitch}' if pitch else ''}) {a} -> {o}"
+              f"{' + shortcut' if post else ''}, body "
               f"{lnk.layout(*lnk.operands(xs, out_dt, sc))}, cold over {copies} input sets (CUDA graph): kernel "
               f"{ms:.4f} ms ({ms / bound:.2f}x the bound, {moved / ms / 1e6:.0f} GB/s), chain {chain_ms:.4f} ms, "
               f"bound {bound:.4f} ms ({moved / 1e6:.1f} MB); {apart:.4%} of outputs apart from the chain; "
@@ -4878,6 +4900,9 @@ def tagger_graph_phase() -> int:
 
 EVA02_L448 = dict(batch=32, tokens=1025, heads=16, head_dim=64)
 ROPE_NAME = r"rope2d_packed_kernel"
+GEMM_NAME = r"gemm|nvjet|xmma|cutlass"
+SM80_ALIGN2_NAME = r"cutlass_80.*align2"
+SWIGLU_PAD_GAP = 0.2  # max |logit| apart, padded SwiGLU against the chain at 2730, bf16 B = 32
 
 
 def pixai_labels(general: int = 9461, characters: int = 4000, series: int = 1000) -> list:
@@ -4907,16 +4932,23 @@ def eva02_phase() -> tuple[dict, int]:
     every replayed batch's scores, indices and probability rows bit-equal to
     the same batch's eager work, one eager dispatch, one capture, 24 RoPE and
     24 kernel-1 launches a forward, and a profiled window of replays holding
-    them, and 73 LayerNorm launches a forward. Returns the RoPE kernel's
-    entry of the kernels line and the LayerNorm kernel's launches."""
+    them, and 73 LayerNorm launches a forward. The SwiGLU at its padded
+    pitch (``eva02.swiglu_pitch``): the forward at B = 32 against the chain
+    at 2730 (max |logit| apart under ``SWIGLU_PAD_GAP``), ``padded_swiglu``
+    one a block a forward run in Python, one SwiGLU through a CUDA graph
+    padded and as the chain, and its GEMMs' kernel names with no sm80
+    ``align2`` kernel among them when padded. Returns the RoPE kernel's entry of the kernels line
+    and the LayerNorm kernel's launches."""
     import dataclasses
     import re
+    from unittest import mock
 
     import numpy as np
     import torch
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
+    from kobato_eyes_tpu_torch.models import eva02
     from kobato_eyes_tpu_torch.models.eva02 import EVA02, eva02_config, rope_table
     from kobato_eyes_tpu_torch.models.graph_dispatch import fetch
     from kobato_eyes_tpu_torch.models.tagger import PixaiTagger
@@ -5003,6 +5035,51 @@ def eva02_phase() -> tuple[dict, int]:
     check(bool(torch.isfinite(fast).all()) and gap < 0.5, f"eva02 forward through the kernels: gap {gap}")
     del plain
 
+    # the SwiGLU hidden at its 16-byte pitch against the chain at 2730 columns
+    mlp = model.blocks[0].mlp
+    hidden, pitch = mlp.hidden, mlp.pitch
+    check(hidden == 2730 and pitch > hidden and pitch % 8 == 0, f"eva02 SwiGLU hidden {hidden} at pitch {pitch}")
+
+    def swiglu_chain(m, x):  # SwiGLU.forward off the padded path
+        return m.fc2(m.norm(F.silu(m.fc1_g(x)) * m.fc1_x(x)))
+
+    before_pad = eva02.padded_swiglu
+    with torch.inference_mode():
+        x32 = torch.randn(b, 448, 448, 3, generator=torch.Generator().manual_seed(4)).to(dev)
+        padded = model(x32)
+        with mock.patch.object(eva02.SwiGLU, "forward", swiglu_chain):
+            chain = model(x32)
+    pad_gap = float((padded - chain).abs().max())
+    pad_moved = eva02.padded_swiglu - before_pad
+    print(f"eva02-l448 bf16 B={b}: SwiGLU hidden {hidden} at pitch {pitch}: max |logit(padded) - logit(chain)| "
+          f"{pad_gap:.4f} (bound {SWIGLU_PAD_GAP}); padded_swiglu {pad_moved} in 2 forwards")
+    check(bool(torch.isfinite(padded).all()) and pad_gap < SWIGLU_PAD_GAP, f"eva02 padded SwiGLU: gap {pad_gap}")
+    check(pad_moved == cfg.depth, f"eva02: padded_swiglu moved {pad_moved}, not {cfg.depth}")
+
+    hin = packed(torch.bfloat16, 45, (b, t, cfg.hidden_dim))
+    swiglu_ms, swiglu_gemms = {}, {}
+    for form, fn in (("padded", mlp), ("chain", lambda x: swiglu_chain(mlp, x))):
+        def run_mlp(fn=fn):
+            with torch.inference_mode():
+                fn(hin)
+
+        swiglu_ms[form] = cuda_graph_ms([run_mlp], replays=20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_mlp()
+            torch.cuda.synchronize()
+        swiglu_gemms[form] = [ev.name() for ev in prof.profiler.kineto_results.events()
+                              if str(ev.device_type()).endswith("CUDA") and re.search(GEMM_NAME, ev.name())]
+    swiglu_flops = 3 * 2.0 * b * t * cfg.hidden_dim * hidden
+    for form, width in (("padded", pitch), ("chain", hidden)):
+        print(f"eva02 SwiGLU B={b} {form} (hidden at {width} columns, CUDA graph): {swiglu_ms[form]:.4f} ms, "
+              f"{swiglu_flops / swiglu_ms[form] / 1e9:.1f} TFLOP/s of the 2730-column work")
+        for name in swiglu_gemms[form]:
+            print(f"  GEMM {form}: {name[:160]}")
+    check(len(swiglu_gemms["padded"]) == 3, f"eva02 SwiGLU padded: {len(swiglu_gemms['padded'])} GEMMs")
+    check(not any(re.search(SM80_ALIGN2_NAME, n) for n in swiglu_gemms["padded"]),
+          f"eva02 SwiGLU at pitch {pitch} still runs an sm80 align2 GEMM: {swiglu_gemms['padded']}")
+    del hin, x32, padded, chain
+
     limits = dict(tagger.max_tags)
     override = {0: 0.6, 4: 0.9}
     plan = [(i % 3, override if i in (3, 4) else None, i == 2) for i in range(7)]
@@ -5015,6 +5092,7 @@ def eva02_phase() -> tuple[dict, int]:
 
     want = {(i, th is None): eager(i, th) for i, th, _ in plan}
     before = (rope.launches, attention.launches, layernorm.launches)
+    before_pad = eva02.padded_swiglu
     handles, got = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5034,6 +5112,8 @@ def eva02_phase() -> tuple[dict, int]:
                   f"eva02 dispatch {n} (batch {key}): replayed {name} differ from the eager work's")
     counts = (tagger.eager_dispatches, tagger.graph_captures, tagger.graph_replays)
     check(counts == (1, 1, len(plan) - 1), f"eva02: eager / captures / replays {counts}")
+    pad_moved = eva02.padded_swiglu - before_pad  # a replay runs no Python: the eager run and the capture
+    check(pad_moved == cfg.depth * 2, f"eva02: padded_swiglu moved {pad_moved} over the dispatches")
     check(moved == [cfg.depth * len(plan)] * 2, f"eva02: launches (rope, kernel 1) {moved} != {cfg.depth * len(plan)} each")
     check(ln_moved == LN_FORWARD_LAUNCHES["eva02"] * len(plan), f"eva02: {ln_moved} LayerNorm launches")
     rows = tagger.complete_batch_prepared(tagger.dispatch_batch_prepared(pixels[0]))

@@ -34,9 +34,13 @@
 //
 // * A thread owns chunks of E consecutive columns, E as wide as one 16-byte
 //   load holds where C, the rows' addresses and their pitch allow it, and 8,
-//   4 or 2 bytes, or one element, otherwise (EVA02's 2730-column bf16 rows
-//   are 5460 bytes apart: 4-byte loads). Neighbouring threads read
-//   neighbouring chunks.
+//   4 or 2 bytes, or one element, otherwise (EVA02's 2730-column bf16 rows:
+//   4-byte loads). Neighbouring threads read neighbouring chunks.
+// * The output's rows may lie further apart than C (EVA02's SwiGLU hidden is
+//   written at a 2752-column pitch, so the product after it runs on
+//   16-byte-aligned rows): the columns past C are written 0. Only epilogue 0
+//   with x in the output's type has such instances (PAD below): the SwiGLU's
+//   case, and no other caller's.
 // * T threads a row, K chunks a thread (thread t owns chunks t, t + T, ...):
 //   T = 16 or 32 (a half warp or a warp; 128-thread blocks) for rows of up
 //   to 256 chunks, a block a row beyond: 128 threads with up to 12 chunks
@@ -76,7 +80,8 @@ struct Args {
   long long shortcut_pitch;
   const void* w;
   const void* b;
-  void* out;  // contiguous (rows, cols) of the output's dtype
+  void* out;  // (rows, cols) of the output's dtype, out_pitch apart
+  long long out_pitch;  // elements between output rows; columns cols .. out_pitch - 1 are written 0
   long long rows;
   int cols;
   int post;  // 0: vit.LayerNorm; 1: ResidualPostNorm (adds the shortcut)
@@ -191,8 +196,11 @@ __device__ __forceinline__ void load_params(float (&v)[E], const void* p, int bf
 }
 
 // TX: x's type; TO: the output's (and the shortcut's); E values a chunk; T
-// threads a row; K chunks a thread (C <= T * K * E).
-template <typename TX, typename TO, int E, int T, int K>
+// threads a row; K chunks a thread (C <= T * K * E); PAD: the output's rows
+// lie out_pitch > C apart, zeros past C, epilogue 0 only (its own instance,
+// so a launch at pitch C runs the unpadded body untouched, and one without
+// the shortcut's code).
+template <typename TX, typename TO, int E, int T, int K, bool PAD>
 __global__ void __launch_bounds__(T > 32 ? T : kWarpBodyThreads)
 layernorm_rows_kernel(const Args a) {
   constexpr int kBlock = T > 32 ? T : kWarpBodyThreads;
@@ -203,6 +211,11 @@ layernorm_rows_kernel(const Args a) {
   const long long row = (long long)blockIdx.x * (kBlock / T) + threadIdx.x / T;
   // a thread past the last row loads nothing and adds zeros: it stays for
   // the shuffles, which name the whole warp
+  if constexpr (PAD) {
+    // layernorm_launch refuses a shortcut at a wider pitch, so these
+    // instances are compiled without epilogue 1 (fewer registers)
+    if (a.post) return;
+  }
   const bool live = row < a.rows;
   const int chunks = a.cols / E;
   const TX* xr = static_cast<const TX*>(a.x) + (live ? row : 0) * a.x_pitch;
@@ -265,7 +278,7 @@ layernorm_rows_kernel(const Args a) {
   if (!a.post && var < 0.f) var = 0.f;  // torch.clamp(min=0): a NaN stays NaN
   const float inv = xla_rsqrt(__fadd_rn(var, a.eps));
 
-  TO* orow = static_cast<TO*>(a.out) + (live ? row : 0) * (long long)a.cols;
+  TO* orow = static_cast<TO*>(a.out) + (live ? row : 0) * (PAD ? a.out_pitch : (long long)a.cols);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int j = t + T * k;
@@ -288,6 +301,18 @@ layernorm_rows_kernel(const Args a) {
       store(orow + (long long)j * E, out);
     }
   }
+  if constexpr (PAD) {
+    // a padded output row (EVA02's SwiGLU hidden at a 16-byte pitch): zeros
+    // past the last column, so a product over the pitch adds nothing there
+    const int out_chunks = (int)(a.out_pitch / E);
+    if (live) {
+      for (int j = chunks + t; j < out_chunks; j += T) {
+        Words<OB> z;
+        zero(z);
+        store(orow + (long long)j * E, z);
+      }
+    }
+  }
 }
 
 template <typename TX, typename TO, int E, int T, int K>
@@ -296,7 +321,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int kRows = kBlock / T;
   const long long blocks = (a.rows + kRows - 1) / kRows;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  layernorm_rows_kernel<TX, TO, E, T, K><<<(unsigned)blocks, kBlock, 0, stream>>>(a);
+  if (a.out_pitch == a.cols) {
+    layernorm_rows_kernel<TX, TO, E, T, K, false><<<(unsigned)blocks, kBlock, 0, stream>>>(a);
+  } else if constexpr (sizeof(TX) == sizeof(TO)) {
+    layernorm_rows_kernel<TX, TO, E, T, K, true><<<(unsigned)blocks, kBlock, 0, stream>>>(a);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
@@ -340,18 +371,24 @@ bool aligned(const void* p, long long bytes) { return reinterpret_cast<uintptr_t
 
 // x_code / out_code: 0 = float32, 1 = bfloat16 (x bf16 with an f32 output is
 // refused); w_code, b_code likewise. shortcut: null for epilogue 0, else
-// (rows, cols) rows of the output's dtype at shortcut_pitch. The layout: e
-// values a chunk, t threads a row, k chunks a thread; refused unless
-// cols <= t * k * e, cols % e == 0, every row of x and of the shortcut
-// starts at a multiple of a chunk's bytes, and w, b and out at multiples of
-// 16 bytes. rsqrt_table: the host's 2048 rsqrt estimates (xla_rsqrt.cuh),
-// copied to the device at its first launch there.
+// (rows, cols) rows of the output's dtype at shortcut_pitch. out: rows
+// out_pitch elements apart, out_pitch == cols or a multiple of 16 bytes above
+// it (the columns past cols written 0), the latter only without a shortcut
+// and with x_code == out_code. The layout: e values a chunk, t threads a row,
+// k chunks a thread; refused unless cols <= t * k * e, cols % e == 0, every
+// row of x and of the shortcut starts at a multiple of a chunk's bytes, and
+// w, b and out at multiples of 16 bytes. rsqrt_table: the host's 2048 rsqrt
+// estimates (xla_rsqrt.cuh), copied to the device at its first launch there.
 extern "C" int layernorm_launch(const void* x, long long x_pitch, const void* shortcut,
                                 long long shortcut_pitch, const void* w, const void* b, void* out,
-                                long long rows, int cols, int x_code, int out_code, int w_code,
-                                int b_code, int e, int t, int k, float eps, const void* rsqrt_table,
-                                void* stream) {
+                                long long out_pitch, long long rows, int cols, int x_code, int out_code,
+                                int w_code, int b_code, int e, int t, int k, float eps,
+                                const void* rsqrt_table, void* stream) {
   if (rows <= 0 || cols <= 0 || cols > kMaxCols || e <= 0 || cols % e != 0 || (long long)t * k * e < cols)
+    return (int)cudaErrorInvalidValue;
+  const long long out_size = out_code ? 2 : 4;
+  if (out_pitch < cols || out_pitch > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (out_pitch != cols && (shortcut != nullptr || x_code != out_code || out_pitch * out_size % 16 != 0))
     return (int)cudaErrorInvalidValue;
   if ((x_code != 0 && x_code != 1) || (out_code != 0 && out_code != 1) || (x_code == 1 && out_code == 0))
     return (int)cudaErrorInvalidValue;
@@ -364,8 +401,8 @@ extern "C" int layernorm_launch(const void* x, long long x_pitch, const void* sh
   if (!aligned(w, 16) || !aligned(b, 16) || !aligned(out, 16)) return (int)cudaErrorInvalidValue;
   const cudaError_t table_err = xla_rsqrt_ensure_table(rsqrt_table);
   if (table_err != cudaSuccess) return (int)table_err;
-  const Args a{x, x_pitch, shortcut, shortcut_pitch, w, b, out, rows, cols, shortcut != nullptr ? 1 : 0,
-               w_code, b_code, eps};
+  const Args a{x, x_pitch, shortcut, shortcut_pitch, w, b, out, out_pitch, rows, cols,
+               shortcut != nullptr ? 1 : 0, w_code, b_code, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_code == 0 && out_code == 0) return (int)launch_types<float, float>(a, e, t, k, st);
   if (x_code == 0) return (int)launch_types<float, __nv_bfloat16>(a, e, t, k, st);

@@ -39,6 +39,12 @@ chunks a row, a block of 128 threads a row beyond (256 past 1536 chunks). x
 of bf16 with an f32 output is widened to f32 first (exact: the same
 result).
 
+The output's rows may lie wider apart than C (``out_pitch``, a multiple of
+16 bytes; the plain epilogue, x no wider than the output): the kernel writes
+zeros past C. EVA02's SwiGLU (``models/eva02.py``)
+writes its 2730-column sub-LayerNorm at a 2752-column pitch that way, so the
+product after it reads 16-byte-aligned rows.
+
 A wrapper launches the kernel for a CUDA tensor and raises if the launch
 fails; it takes the plain version only for a CPU tensor. ``launches`` counts
 the kernel's launches in this process, under a lock (the watcher's tag jobs
@@ -170,12 +176,14 @@ def row_sums(xf: torch.Tensor, e: int, t: int, k: int) -> tuple[torch.Tensor, to
 def layernorm_plain(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *, eps: float, dtype: torch.dtype,
     shortcut: torch.Tensor | None = None, body_of: tuple[int, int, int] | None = None,
+    out_pitch: int | None = None,
 ) -> torch.Tensor:
     """The kernel's result step for step (module docstring), in the order of
     ``body_of`` (E, T, K) or else of the body the card would run on these
     tensors. Without ``shortcut`` ``vit.LayerNorm``'s arithmetic, with it
-    ``ResidualPostNorm``'s."""
-    c = x.shape[-1]
+    ``ResidualPostNorm``'s. With ``out_pitch`` the rows are ``out_pitch``
+    columns wide, the C results first and zeros after."""
+    c = x.shape[-1] if x.dim() else 0
     x2, shortcut2 = operands(x, dtype, shortcut)
     e, t, k = layout(x2, shortcut2) if body_of is None else body_of
     xf = x2.float()
@@ -190,7 +198,9 @@ def layernorm_plain(
         y = (xf - mean) * rsqrt_plain(var + eps)
         y = y * weight + bias
         out = shortcut2 + y.to(dtype)
-    return out.reshape(x.shape)
+    if out_pitch is not None and out_pitch != c:
+        out = torch.nn.functional.pad(out, (0, out_pitch - c))
+    return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +215,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.layernorm_launch
     if fn.argtypes is None:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [vp, ll, vp, ll, vp, vp, vp, ll, i, i, i, i, i, i, i, i, ctypes.c_float, vp, vp]
+        fn.argtypes = [vp, ll, vp, ll, vp, vp, vp, ll, ll, i, i, i, i, i, i, i, i, ctypes.c_float, vp, vp]
         fn.restype = ctypes.c_int
     return lib
 
@@ -245,8 +255,9 @@ def _launch(x2: torch.Tensor, shortcut2: torch.Tensor | None, weight: torch.Tens
     err = _library().layernorm_launch(
         x2.data_ptr(), x2.stride(0), None if shortcut2 is None else shortcut2.data_ptr(),
         0 if shortcut2 is None else shortcut2.stride(0), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        x2.shape[0], x2.shape[1], _DTYPE_CODES[x2.dtype], _DTYPE_CODES[out.dtype], _DTYPE_CODES[weight.dtype],
-        _DTYPE_CODES[bias.dtype], e, t, k, float(eps), rsqrt_estimate_table().ctypes.data, stream,
+        out.stride(0), x2.shape[0], x2.shape[1], _DTYPE_CODES[x2.dtype], _DTYPE_CODES[out.dtype],
+        _DTYPE_CODES[weight.dtype], _DTYPE_CODES[bias.dtype], e, t, k, float(eps), rsqrt_estimate_table().ctypes.data,
+        stream,
     )
     if err != 0:
         raise RuntimeError(f"layernorm launch failed: cudaError_t {err}")
@@ -254,21 +265,31 @@ def _launch(x2: torch.Tensor, shortcut2: torch.Tensor | None, weight: torch.Tens
 
 def layernorm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *, eps: float, dtype: torch.dtype,
-    shortcut: torch.Tensor | None = None,
+    shortcut: torch.Tensor | None = None, out_pitch: int | None = None,
 ) -> torch.Tensor:
     """LayerNorm over the last axis, any leading shape, written in ``dtype``:
     ``vit.LayerNorm``'s arithmetic, or with ``shortcut`` ``ResidualPostNorm``'s
     (module docstring). The kernel for a CUDA tensor, the plain version for
-    a CPU tensor."""
+    a CPU tensor. ``out_pitch`` (C by default): the output's last axis, the
+    C results and zeros after them, so a product that reads the rows finds
+    them aligned; wider than C only on 16 bytes, without ``shortcut`` and
+    with x no wider than ``dtype`` (the kernel's padded instances)."""
     global launches
+    c = x.shape[-1] if x.dim() else 0
+    pitch = c if out_pitch is None else out_pitch
+    if pitch != c and (pitch < c or pitch * dtype.itemsize % VECTOR_BYTES or shortcut is not None
+                       or x.dtype.itemsize > dtype.itemsize):
+        raise ValueError(f"layernorm writes rows wider apart than C = {c} only at a multiple of {VECTOR_BYTES} bytes, "
+                         f"without a shortcut and from x no wider than {dtype}: not at {pitch} values "
+                         f"from {x.dtype}{' with a shortcut' if shortcut is not None else ''}")
     if not on_card(x):
-        return layernorm_plain(x, weight, bias, eps=eps, dtype=dtype, shortcut=shortcut)
+        return layernorm_plain(x, weight, bias, eps=eps, dtype=dtype, shortcut=shortcut, out_pitch=pitch)
     check_inputs(x, weight, bias, dtype, shortcut)
     x2, shortcut2 = operands(x, dtype, shortcut)
-    out = torch.empty(x2.shape, dtype=dtype, device=x.device)
+    out = torch.empty((x2.shape[0], pitch), dtype=dtype, device=x.device)
     if x2.shape[0] == 0:
-        return out.reshape(x.shape)
+        return out.reshape(*x.shape[:-1], pitch)
     _launch(x2, shortcut2, _aligned_param(weight), _aligned_param(bias), out, layout(x2, shortcut2), eps)
     with _count_lock:
         launches += 1
-    return out.reshape(x.shape)
+    return out.reshape(*x.shape[:-1], pitch)

@@ -3,8 +3,10 @@
 float32 reference (``ketbench/reference/eva02.py``, which imports nothing of
 the port) on seeded random weights, the rotation's plain version against the
 reference's rotation, the RoPE table against the formula, the PixAI tagger
-on it (dispatch / complete, checkpoint, mesh, signature). The rotation
-kernel runs on the card (``chip_smoke.py``'s ``eva02_phase``).
+on it (dispatch / complete, checkpoint, mesh, signature), and the SwiGLU's
+hidden at its 16-byte pitch (the path beside the LayerNorm kernel) against
+the chain. The rotation kernel and the padded forward run on the card
+(``chip_smoke.py``'s ``eva02_phase``).
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ import pytest
 import torch
 
 from ketbench.reference.eva02 import eva02_logits, rope_tables, rotate
+from kobato_eyes_tpu_torch.models import eva02
 from kobato_eyes_tpu_torch.models.eva02 import (
     EPS,
     EVA02,
     EVA02Config,
+    SwiGLU,
     eva02_config,
     eva02_forward_flops,
     ROPE_REF_GRID,
@@ -34,6 +38,7 @@ from kobato_eyes_tpu_torch.models.import_weights import StateDictMismatch, eva02
 from kobato_eyes_tpu_torch.models.labels import synthetic_labels
 from kobato_eyes_tpu_torch.models.preprocess import PreprocessSpec, normalize_on_device
 from kobato_eyes_tpu_torch.models.tagger import PixaiTagger, WD14Tagger, save_checkpoint
+from kobato_eyes_tpu_torch.ops import layernorm
 from kobato_eyes_tpu_torch.ops.rope import rope_packed, rope_packed_plain
 
 torch.set_num_threads(1)
@@ -292,3 +297,151 @@ def test_fast_math_turns_on_the_kernels_only():
     fast = PixaiTagger(arch="eva02", preset="tiny", image_size=SIZE, labels=pixai_labels(), fast_math=True,
                        device="cpu")
     assert fast.cfg.attn_impl == "pallas"
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU's hidden at a 16-byte pitch (the path beside the LayerNorm kernel)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def kernel_path(monkeypatch):
+    """``on_card`` says yes and the kernel's launch writes its plain version
+    into the wrapper's output: what a CUDA tensor meets, on the CPU. Where
+    autograd does not record, the SwiGLU takes its padded path."""
+
+    def launch(x2, shortcut2, weight, bias, out, body_of, eps):
+        out.copy_(layernorm.layernorm_plain(x2, weight, bias, eps=eps, dtype=out.dtype, shortcut=shortcut2,
+                                            body_of=body_of, out_pitch=out.shape[-1]))
+
+    monkeypatch.setattr(layernorm, "on_card", lambda x: True)
+    monkeypatch.setattr(layernorm, "_launch", launch)
+
+
+def swiglu(cfg: EVA02Config, seed: int = 11) -> SwiGLU:
+    """lecun-normal matrices; the biases and the sub-LayerNorm's scale moved
+    off their init."""
+    mlp = SwiGLU(cfg).eval()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in mlp.parameters():
+            noise = torch.randn(p.shape, generator=gen)
+            p.copy_(noise / math.sqrt(p.shape[1]) if p.dim() == 2 else p + 0.1 * noise)
+    return mlp
+
+
+@pytest.mark.parametrize("preset,rows", [("tiny", 40), ("large", 6)])
+def test_padded_swiglu_equals_the_chain(preset, rows):
+    """float32, tiny (170 -> 192 columns) and EVA02-L (2730 -> 2752): the
+    padded path within 1e-6 of the chain the CPU runs, relative to the
+    largest output (|out| reaches ~4, where an f32 step is 4.8e-7: the
+    sub-LayerNorm's sums run in the kernel's order, the products' in another;
+    the zeros add nothing)."""
+    cfg = eva02_config(preset, dtype=torch.float32)
+    mlp = swiglu(cfg)
+    assert (mlp.hidden, mlp.pitch) == {"tiny": (170, 192), "large": (2730, 2752)}[preset]
+    x = torch.randn(2, rows, cfg.hidden_dim, generator=torch.Generator().manual_seed(12))
+    with torch.inference_mode():
+        want = mlp(x)
+        got = mlp.forward_padded(x)
+    assert got.shape == want.shape == x.shape
+    assert float((got - want).abs().max()) <= 1e-6 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pad_columns_are_exact_zeros(dtype, monkeypatch):
+    """g, u, SiLU(g) * u and the sub-LayerNorm's output are 0 past the 170
+    real columns of the pitch; the LayerNorm reads the real columns in place
+    at the pitch; the padded weights hold the parameters' casts and zeros."""
+    cfg = eva02_config("tiny", dtype=dtype)
+    mlp = swiglu(cfg)
+    hidden, pitch = mlp.hidden, mlp.pitch
+    assert hidden == 170 and pitch > hidden
+    seen = []
+    real = layernorm.layernorm
+
+    def spy(x, *args, **kw):
+        seen.append((x, real(x, *args, **kw)))
+        return seen[-1][1]
+
+    monkeypatch.setattr(layernorm, "layernorm", spy)
+    x = torch.randn(3, 5, cfg.hidden_dim, generator=torch.Generator().manual_seed(13))
+    with torch.inference_mode():
+        mlp.forward_padded(x)
+        w_g, w_x, b_g, b_x, w_2 = mlp.padded_operands()
+        g, u = (torch.matmul(x.to(dtype), w.t()) + b for w, b in ((w_g, b_g), (w_x, b_x)))
+    ((hv, out),) = seen
+    assert hv.shape[-1] == hidden and hv.stride(-2) == pitch
+    h = hv.as_strided((*hv.shape[:-1], pitch), hv.stride())
+    for t in (g, u, h, out):
+        assert t.shape == (3, 5, pitch) and t.dtype == dtype
+        assert torch.equal(t[..., hidden:], torch.zeros(3, 5, pitch - hidden, dtype=dtype))
+    assert torch.equal(out[..., :hidden],
+                       layernorm.layernorm_plain(hv, mlp.norm.weight, mlp.norm.bias, eps=EPS, dtype=dtype))
+    assert not torch.equal(h[..., :hidden], torch.zeros_like(h[..., :hidden]))
+    for got, param in ((w_g, mlp.fc1_g.weight), (w_x, mlp.fc1_x.weight), (b_g, mlp.fc1_g.bias),
+                       (b_x, mlp.fc1_x.bias), (w_2.t(), mlp.fc2.weight.t())):
+        assert torch.equal(got[:hidden], param.to(dtype)) and not got[hidden:].any()
+
+
+def test_a_hidden_width_on_16_bytes_keeps_the_chain(kernel_path, monkeypatch):
+    """176 columns are 16-byte rows already: the chain runs (its LayerNorm at
+    pitch C), not the padded path."""
+    cfg = eva02_config("tiny", mlp_hidden=176, dtype=torch.bfloat16)
+    mlp = swiglu(cfg)
+    assert mlp.pitch == mlp.hidden == 176
+    pitches = []
+    real = layernorm.layernorm
+
+    def spy(x, *args, out_pitch=None, **kw):
+        pitches.append(out_pitch)
+        return real(x, *args, out_pitch=out_pitch, **kw)
+
+    monkeypatch.setattr(layernorm, "layernorm", spy)
+    before = eva02.padded_swiglu
+    x = torch.randn(2, 3, cfg.hidden_dim, generator=torch.Generator().manual_seed(14))
+    with torch.inference_mode():
+        got = mlp(x)
+        hidden = torch.nn.functional.silu(mlp.fc1_g(x)) * mlp.fc1_x(x)
+        want = mlp.fc2(layernorm.layernorm_plain(hidden, mlp.norm.weight, mlp.norm.bias, eps=EPS,
+                                                 dtype=torch.bfloat16))
+    assert pitches == [None] and eva02.padded_swiglu == before
+    assert torch.equal(got, want)
+
+
+def test_padded_swiglu_counts_a_block_on_the_padded_path_only(kernel_path, monkeypatch):
+    """One count a block a forward on the padded path; none under autograd,
+    none on a CPU tensor; the f32 logits within 1e-5 of the chain's."""
+    cfg = tiny()
+    model, _ = model_and_state(cfg)
+    pics = pictures(2, 15)
+    before = eva02.padded_swiglu
+    padded = port_logits(model, pics)
+    assert eva02.padded_swiglu == before + cfg.depth
+    x = normalize_on_device(pics, PreprocessSpec(mode="pixai", size=SIZE, mean=MEAN, std=STD))
+    assert model(x).requires_grad  # grad mode on, the parameters require grad: the chain
+    monkeypatch.undo()
+    chain = port_logits(model, pics)
+    assert eva02.padded_swiglu == before + cfg.depth
+    torch.testing.assert_close(padded, chain, rtol=0, atol=1e-5)
+
+
+def test_padded_path_leaves_the_parameters_and_manifest_as_they_are(kernel_path, tmp_path):
+    """The state dict keeps 170 hidden columns, key for key and value for
+    value, after forwards on the padded path; the manifest and a checkpoint
+    round trip are the parent's, and the loaded tagger answers the same."""
+    tagger = pixai_tagger()
+    before = {k: v.clone() for k, v in tagger._model.state_dict().items()}
+    batch = pictures(2, 30).numpy()
+    count = eva02.padded_swiglu
+    answer = tagger.infer_batch_prepared(batch)
+    assert eva02.padded_swiglu == count + tagger.cfg.depth
+    state = tagger._model.state_dict()
+    manifest = eva02_state_manifest(tagger.cfg)
+    assert {k: tuple(v.shape) for k, v in state.items()} == manifest
+    assert all(torch.equal(state[k], v) for k, v in before.items()) and state.keys() == before.keys()
+    assert (manifest["blocks.0.mlp.fc1_g.weight"], manifest["blocks.0.mlp.fc2.weight"],
+            manifest["blocks.0.mlp.norm.weight"]) == ((170, 64), (64, 170), (170,))
+    meta = {"arch": "eva02", "preset": "tiny", "image_size": SIZE, "num_classes": N_LABELS}
+    save_checkpoint(tmp_path / "ck", state, manifest=meta)
+    assert pixai_tagger(checkpoint_path=tmp_path / "ck").infer_batch_prepared(batch) == answer

@@ -66,8 +66,10 @@ def fake_card(monkeypatch):
 
     def launch(x2, shortcut2, weight, bias, out, body_of, eps):
         calls.append({"rows": tuple(x2.shape), "pitch": x2.stride(0), "body": body_of, "post": shortcut2 is not None,
-                      "x": x2.dtype, "out": out.dtype, "params": (weight.dtype, bias.dtype), "eps": eps})
-        out.copy_(L.layernorm_plain(x2, weight, bias, eps=eps, dtype=out.dtype, shortcut=shortcut2, body_of=body_of))
+                      "x": x2.dtype, "out": out.dtype, "params": (weight.dtype, bias.dtype), "eps": eps,
+                      "out_pitch": out.stride(0)})
+        out.copy_(L.layernorm_plain(x2, weight, bias, eps=eps, dtype=out.dtype, shortcut=shortcut2, body_of=body_of,
+                                    out_pitch=out.shape[-1]))
 
     monkeypatch.setattr(L, "on_card", lambda x: True)
     monkeypatch.setattr(L, "_launch", launch)
@@ -260,6 +262,88 @@ def test_wrapper_reads_misaligned_and_strided_rows_in_place(post, offset, pitch,
     want = L.layernorm_plain(x.contiguous(), w, b, eps=1e-5, dtype=torch.bfloat16, shortcut=shortcut,
                              body_of=call["body"])
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The output's pitch (EVA02's SwiGLU hidden at 2752 columns; 2736 is the 16-byte minimum)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("params", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,pitch", [(170, 176), (2730, 2736), (768, 776)])
+def test_plain_writes_the_row_then_zeros_at_a_wider_pitch(c, pitch, dtype, params, fake_card):
+    """At ``out_pitch`` > C the first C columns are the pitch-C result bit
+    for bit and the rest 0, from the plain version and through the wrapper,
+    with x read in place at that pitch as the SwiGLU lays it out, with f32
+    and bf16 parameters."""
+    x = _view(5, c, dtype, pitch=pitch)
+    w, b = _affine(c, params)
+    want = L.layernorm_plain(x, w, b, eps=1e-6, dtype=dtype)
+    got = L.layernorm_plain(x, w, b, eps=1e-6, dtype=dtype, out_pitch=pitch)
+    wrapped = L.layernorm(x, w, b, eps=1e-6, dtype=dtype, out_pitch=pitch)
+    (call,) = fake_card
+    assert (call["pitch"], call["out_pitch"]) == (pitch, pitch)
+    assert got.shape == wrapped.shape == (5, pitch) and want.shape == (5, c)
+    assert torch.equal(_bits(got[:, :c]), _bits(want)) and torch.equal(_bits(wrapped), _bits(got))
+    assert torch.equal(got[:, c:], torch.zeros(5, pitch - c, dtype=dtype))
+
+
+@pytest.mark.parametrize("route", ["fake_card", "cpu"])
+@pytest.mark.parametrize("c,pitch,dtype", [(2730, 2732, torch.bfloat16), (2730, 2734, torch.float32),
+                                           (2730, 2729, torch.bfloat16), (768, 772, torch.bfloat16)])
+def test_wrapper_refuses_an_output_pitch_off_16_bytes(c, pitch, dtype, route, request):
+    calls = request.getfixturevalue("fake_card") if route == "fake_card" else []
+    w, b = _affine(c)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        L.layernorm(_rows(3, c, torch.bfloat16), w, b, eps=1e-6, dtype=dtype, out_pitch=pitch)
+    assert calls == []
+
+
+@pytest.mark.parametrize("route", ["fake_card", "cpu"])
+@pytest.mark.parametrize("x_dtype,dtype,post", [(torch.bfloat16, torch.bfloat16, True),
+                                                (torch.float32, torch.bfloat16, False)])
+def test_wrapper_refuses_a_wider_pitch_with_a_shortcut_or_a_narrower_output(x_dtype, dtype, post, route, request):
+    """The kernel's padded instances hold epilogue 0 with x in the output's
+    type: a shortcut, or f32 x with a bf16 output, is refused at a wider
+    pitch on both routes."""
+    calls = request.getfixturevalue("fake_card") if route == "fake_card" else []
+    w, b = _affine(2730)
+    shortcut = _rows(3, 2730, dtype, seed=3) if post else None
+    with pytest.raises(ValueError, match="without a shortcut and from x no wider"):
+        L.layernorm(_rows(3, 2730, x_dtype), w, b, eps=1e-6, dtype=dtype, shortcut=shortcut, out_pitch=2736)
+    assert calls == []
+
+
+def test_output_pitch_of_c_gives_todays_launch_arguments(monkeypatch):
+    """The arguments handed to ``layernorm_launch``: at the default pitch
+    the output's rows are C apart (the launch before the output had a
+    pitch); a sub-LayerNorm at a 2736 pitch reads and writes at that pitch and
+    keeps the body it has at 2730 (the loads are unchanged)."""
+    calls = []
+
+    class Library:
+        def layernorm_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(L, "on_card", lambda x: True)
+    monkeypatch.setattr(L, "_library", Library)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 7}))
+    table = L.rsqrt_estimate_table().ctypes.data
+
+    def launch(c, pitch, out_pitch):
+        x, (w, b) = _view(6, c, torch.bfloat16, pitch=pitch), _affine(c)
+        out = L.layernorm(x, w, b, eps=1e-5, dtype=torch.bfloat16, out_pitch=out_pitch)
+        assert out.shape == (6, c if out_pitch is None else out_pitch)
+        return calls.pop(), (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr())
+
+    args, (xp, wp, bp, op) = launch(768, None, None)
+    assert args == (xp, 768, None, 0, wp, bp, op, 768, 6, 768, 1, 1, 0, 0, 8, 32, 4, 1e-5, table, 7)
+    args, (xp, wp, bp, op) = launch(2730, None, None)
+    assert args == (xp, 2730, None, 0, wp, bp, op, 2730, 6, 2730, 1, 1, 0, 0, 2, 128, 12, 1e-5, table, 7)
+    args, (xp, wp, bp, op) = launch(2730, 2736, 2736)
+    assert args == (xp, 2736, None, 0, wp, bp, op, 2736, 6, 2730, 1, 1, 0, 0, 2, 128, 12, 1e-5, table, 7)
 
 
 def test_bf16_input_with_an_f32_output_is_widened_first(fake_card):
@@ -463,6 +547,25 @@ def test_card_misaligned_strided_rows_and_bf16_parameters(post, offset, pitch, p
     want = L.layernorm_plain(on_card, w, b, eps=1e-5, dtype=torch.bfloat16, shortcut=shortcut)
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("rows,c,pitch,dtype,params", [(32800, 2730, 2752, torch.bfloat16, torch.float32),
+                                                       (32800, 2730, 2736, torch.bfloat16, torch.bfloat16),
+                                                       (4099, 170, 176, torch.float32, torch.float32),
+                                                       (4099, 768, 776, torch.bfloat16, torch.bfloat16)])
+def test_card_output_at_a_wider_pitch_is_bit_equal_to_its_plain_version(rows, c, pitch, dtype, params, card):
+    """x read in place at the pitch, the output written at it, over memory
+    the allocator last held as NaN: the C columns and the zeros after them
+    bit-equal to the plain version."""
+    x = _rows(rows, pitch, dtype).to(card)[:, :c]
+    w, b = (p.to(card) for p in _affine(c, params))
+    del_me = torch.full((rows, pitch), float("nan"), dtype=dtype, device=card)
+    del del_me
+    got = L.layernorm(x, w, b, eps=1e-6, dtype=dtype, out_pitch=pitch)
+    want = L.layernorm_plain(x, w, b, eps=1e-6, dtype=dtype, out_pitch=pitch)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, pitch) and torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.card
